@@ -8,11 +8,13 @@ torch version.  Phases, one line each:
 
   1. the card (torch.cuda must be available) with its name and power limit;
   2. build the CUDA kernels from the repo's sources (nvcc, sm_90a);
-  3. kernel vs plain: banded SW on 8,192 pairs at L=100 and a batch at
-     L=101, BWA and ELAND scores, bit-equal to `banded_sw_torch` on the
-     same CUDA tensors and, on 256 pairs, to the numpy oracle; times both
-     (and again at the slice's own launch shape after phase 4, the times
-     the kernel line reports);
+  3. kernel vs plain: banded SW with BWA and ELAND scores at L in
+     {1, 4, 5, 100, 101, 150, 251, 400} (896 pairs) and N in {1, 3, 896,
+     8,192, 65,537} (L=100), and with every pair a near-match at band
+     offset 0 or 15, bit-equal to `banded_sw_torch` on the same CUDA
+     tensors and, on 256 pairs, to the numpy oracle; L over the kernel's
+     limit raises; times both at 8,192 x 100 (and again at the slice's own
+     launch shape after phase 4, the times the kernel line reports);
   4. slice: 4.6 Mbp repeat-rich genome from --seed, 32-mer index, 4 x 32,768
      reads of 100 bp (1% substitutions, half reverse complemented, 3% with
      a 1-8 bp indel) through the aligner on the card; checks the aligned
@@ -20,8 +22,8 @@ torch version.  Phases, one line each:
   5. card vs CPU: one 2,048-read batch through the port on both devices
      gives the same SAM core fields (MAPQ: floor flips only).
 
-It imports only torch, numpy and the port, and fails if any JAX module was
-loaded by the end.
+It imports only torch, numpy and the port, and fails if any `jax*` or
+`isaac_aligner_tpu` module was loaded by the end.
 
 Then one JSON line of kernel results, the card line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
@@ -45,14 +47,34 @@ import torch
 
 from isaac_aligner_tpu_torch import synthetic
 from isaac_aligner_tpu_torch.aligner import Aligner
-from isaac_aligner_tpu_torch.host import (ReadBatch, build_index, read_fastq,
-                                          write_sam)
+from isaac_aligner_tpu_torch.index.build import build_index
+from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
+from isaac_aligner_tpu_torch.io.sam import write_sam
 from isaac_aligner_tpu_torch.ops import _build, sw
 
 READ_LEN = 100
 BATCH = 32_768
 N_BATCHES = 4
 SW_PAIRS = 8_192
+SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
+SW_BATCHES = (1, 3, 896, 8_192, 65_537)
+
+# The card's peak rates (H100 SXM data sheet, 700 W): 3.35 TB/s of HBM and
+# 67 TFLOP/s of f32 outside the tensor cores, i.e. 33.5e12 f32 add lanes/s
+# (the data sheet counts an FMA as two).  The CUDA programming guide's
+# throughput table (compute capability 9.0) issues compares, min/max and
+# 32-bit integer ops at half the f32 add rate, on another pipe than the
+# adds; the four schedulers of an SM issue one warp instruction a clock
+# each, as many lanes as the add rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_ADDS_PER_S = 67e12 / 2
+HALF_RATE_OPS_PER_S = F32_ADDS_PER_S / 2
+ISSUE_LANES_PER_S = F32_ADDS_PER_S
+# per band cell: 6 f32 adds (G + W, and G, E, F plus open or extend, G's
+# open shared by E and F); 9 f32 max, 6 f32 compares, 7 selects and 5
+# integer ops (match test, code word) at half rate
+SW_ADDS_PER_CELL = 6
+SW_HALF_RATE_OPS_PER_CELL = 27
 
 
 def card_line() -> str:
@@ -64,35 +86,69 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` calls, by CUDA events."""
+    """Mean device milliseconds per call: `reps` calls queued behind a
+    sleep kernel (so the host's enqueue time does not show), between two
+    CUDA events."""
+    slept = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    slept.record()
+    torch.cuda._sleep(200_000_000)         # ~0.1 s: the queue fills meanwhile
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    enqueue_s = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
+    # the device reached `start` after the sleep; every call must have been
+    # queued by then, or the time would hold the host's gaps
+    if enqueue_s * 1e3 >= slept.elapsed_time(start):
+        raise AssertionError(f"{reps} calls took {enqueue_s:.3f} s to enqueue, "
+                             f"longer than the sleep")
     return start.elapsed_time(end) / reps
 
 
-def sw_pairs(rng, n, l):
-    """Random (query, window) pairs; half are near-matches at a random
-    band offset so real tracebacks are compared, not only the sentinel
-    region."""
-    q = rng.integers(0, 5, (n, l)).astype(np.int32)
-    db = rng.integers(0, 5, (n, l + sw.BAND - 1)).astype(np.int32)
-    off = rng.integers(0, sw.BAND, n // 2)
-    near = db[np.arange(0, n, 2)[:, None], off[:, None] + np.arange(l)[None, :]]
+def sw_bound(n: int, l: int) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations") for banded SW of n
+    pairs of length l: each input byte read once and each output byte
+    written once over the HBM rate, against the recurrence's per-cell
+    instructions: the busier of the two pipes, or the issue of all of
+    them, whichever is slower."""
+    cells = n * l * sw.BAND
+    op_s = cells * max(
+        SW_ADDS_PER_CELL / F32_ADDS_PER_S,
+        SW_HALF_RATE_OPS_PER_CELL / HALF_RATE_OPS_PER_S,
+        (SW_ADDS_PER_CELL + SW_HALF_RATE_OPS_PER_CELL) / ISSUE_LANES_PER_S)
+    nbytes = n * ((2 * l + sw.BAND - 1) + 4 * sw.BAND
+                  + 4 * sw.BAND * -(-l // sw.TB_PACK))
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s
+                                     else "bytes")
+
+
+def sw_pairs(rng, n, l, offsets=None):
+    """Random (query, window) pairs; the even ones are near-matches at a
+    random band offset (or every pair, at `offsets` in turn) so real
+    tracebacks are compared, not only the sentinel region."""
+    q = rng.integers(0, 5, (n, l)).astype(np.uint8)
+    db = rng.integers(0, 5, (n, l + sw.BAND - 1)).astype(np.uint8)
+    rows = np.arange(0, n, 2) if offsets is None else np.arange(n)
+    off = (rng.integers(0, sw.BAND, rows.size) if offsets is None
+           else np.resize(np.asarray(offsets), rows.size))
+    near = db[rows[:, None], off[:, None] + np.arange(l)[None, :]]
     mut = rng.random(near.shape) < 0.05
-    q[0::2] = np.where(mut, rng.integers(0, 4, near.shape), near)
+    q[rows] = np.where(mut, rng.integers(0, 4, near.shape), near)
     return q, db
 
 
-def check_and_time(rng, dev, n: int, l: int, scores, time_it: bool) -> dict:
+def check_and_time(rng, dev, n: int, l: int, scores, time_it: bool,
+                   offsets=None) -> dict:
     """banded_sw kernel vs banded_sw_torch on the same CUDA tensors (bit
     equality of gfin and tb) and, on up to 256 pairs, vs the numpy oracle;
     with time_it, CUDA-event times of both after a warm-up."""
-    q, db = sw_pairs(rng, n, l)
+    q, db = sw_pairs(rng, n, l, offsets)
     qd = torch.from_numpy(q).to(dev)
     dbd = torch.from_numpy(db).to(dev)
     g_k, tb_k = sw.banded_sw(qd, dbd, scores)
@@ -112,25 +168,44 @@ def check_and_time(rng, dev, n: int, l: int, scores, time_it: bool) -> dict:
     if time_it:
         for _ in range(3):
             sw.banded_sw(qd, dbd, scores)
-        out["ms"] = cuda_ms(lambda: sw.banded_sw(qd, dbd, scores), 50)
-        out["plain_ms"] = cuda_ms(lambda: sw.banded_sw_torch(qd, dbd, scores), 3)
+        out["ms"] = cuda_ms(lambda: sw.banded_sw(qd, dbd, scores), 200)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            sw.banded_sw_torch(qd, dbd, scores)
+        torch.cuda.synchronize()
+        out["plain_ms"] = (time.perf_counter() - t0) / 3 * 1e3
         out["gcups"] = n * l * sw.BAND / (out["ms"] * 1e-3) / 1e9
+        out["bound_ms"], out["bound_by"] = sw_bound(n, l)
     return out
 
 
 def phase_kernel(rng, dev) -> None:
     """Kernel vs plain version on the card (and the numpy oracle)."""
-    for n, l in ((SW_PAIRS, READ_LEN), (1_000, READ_LEN + 1)):
-        for scores in (sw.BWA_SCORES, sw.ELAND_SCORES):
-            t = check_and_time(rng, dev, n, l, scores,
-                               time_it=(n == SW_PAIRS and scores == sw.BWA_SCORES))
+    shapes = ([(896, l) for l in SW_LENGTHS]
+              + [(n, READ_LEN) for n in SW_BATCHES])
+    for scores in (sw.BWA_SCORES, sw.ELAND_SCORES):
+        for n, l in shapes:
+            t = check_and_time(rng, dev, n, l, scores, time_it=(
+                (n, l) == (SW_PAIRS, READ_LEN) and scores == sw.BWA_SCORES))
             if "ms" in t:
                 timing = t
+        check_and_time(rng, dev, 899, READ_LEN, scores, False,
+                       offsets=[0, sw.BAND - 1])
+    q = torch.zeros((3, sw.MAX_LEN + 1), dtype=torch.uint8, device=dev)
+    db = torch.zeros((3, sw.MAX_LEN + sw.BAND), dtype=torch.uint8, device=dev)
+    try:
+        sw.banded_sw(q, db)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
     print(f"[3/5] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
-          f"(N={SW_PAIRS} L={READ_LEN}, N=1000 L={READ_LEN + 1}, bwa+eland) "
-          f"and to numpy on 256 pairs; N={SW_PAIRS} L={READ_LEN}: kernel "
-          f"{timing['ms']:.4f} ms ({timing['gcups']:.1f} GCUPS), plain "
-          f"{timing['plain_ms']:.2f} ms", flush=True)
+          f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
+          f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
+          f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
+          f"kernel {timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, "
+          f"bound {timing['bound_ms']:.5f} ms by {timing['bound_by']}), "
+          f"plain {timing['plain_ms']:.2f} ms", flush=True)
 
 
 def write_fastq(path: Path, bases: np.ndarray) -> None:
@@ -205,7 +280,8 @@ def phase_slice(args, dev, card: str, tmp: Path):
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
     print(f"[4/5] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
-          f"{timing['ms']:.4f} ms ({timing['gcups']:.1f} GCUPS), plain "
+          f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
           f"{timing['plain_ms']:.2f} ms; SAM records "
           f"{al.timings['records']:.2f} s", flush=True)
     return index, batches[0], al, launches, timing
@@ -259,16 +335,21 @@ def main() -> None:
         index, batch0, al, launches, timing = phase_slice(args, dev, card,
                                                           Path(d))
     phase_card_vs_cpu(index, batch0, al)
-    jax_mods = sorted(m for m in sys.modules if m.startswith("jax"))
+    jax_mods = sorted(m for m in sys.modules if m.startswith("jax")
+                      or m.split(".")[0] == "isaac_aligner_tpu")
     if jax_mods:
-        raise AssertionError(f"the port loaded JAX modules: {jax_mods[:5]}")
+        raise AssertionError(f"the port loaded JAX modules or the JAX "
+                             f"package: {jax_mods[:5]}")
 
     print(json.dumps({"kernels": [{
         "name": "banded_sw", "route": "cuda",
         "source": "isaac_aligner_tpu_torch/ops/csrc/banded_sw.cu",
         "replaces": "isaac_aligner_tpu/ops/sw.py:237",
         "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"]}]}))
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        # no PyTorch call computes banded SW with a traceback
+        "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -12,10 +12,13 @@ inputs.
   "cuda" without a card raises (`device.require_device`).  On CPU tensors
   each kernel wrapper runs its plain torch version, which is what the CPU
   tests exercise.
-- Host-only modules of the JAX package that do not import jax are reused
-  by import: `dna`, `io.fasta`, `io.fastq`, `io.sam`, `io.bam`
-  (`parse_cigar`), `index.build` (not `SeedIndex.save`), `align.clippers`
-  and `utils.tracing`.  This package itself never imports jax.
+- The host modules are the port's own copies of the JAX package's, under
+  the same module names and unchanged in behaviour: `dna`, `io.fasta`,
+  `io.fastq`, `io.sam`, `io.bam` (`parse_cigar`), `index.build` (with
+  `SeedIndex.save`/`load` on the same on-disk layout, so an index
+  directory written by either package loads in the other),
+  `align.clippers` and `utils.tracing`.  This package imports neither jax
+  nor anything of `isaac_aligner_tpu`.
 """
 
 __version__ = "0.1.0"

@@ -20,8 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from isaac_aligner_tpu.index.build import SeedIndex
-
+from ..index.build import SeedIndex
 from ..ops import sw
 from . import quality
 from .pipeline import AlignConfig

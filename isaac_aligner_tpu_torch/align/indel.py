@@ -14,10 +14,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from isaac_aligner_tpu import dna
-from isaac_aligner_tpu.index.build import SeedIndex
-from isaac_aligner_tpu.io.bam import parse_cigar
-
+from .. import dna
+from ..index.build import SeedIndex
+from ..io.bam import parse_cigar
 from . import quality
 from .gapped import BWA, GapScoring, cigar_stats, rescore_cigar
 from .pipeline import AlignConfig

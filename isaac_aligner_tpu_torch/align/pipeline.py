@@ -29,15 +29,12 @@ import math
 import numpy as np
 import torch
 
-from isaac_aligner_tpu import dna
-from isaac_aligner_tpu.align.clippers import (CONSECUTIVE_MATCHES_MIN,
-                                              MASK_READ_LENGTH_MIN)
-from isaac_aligner_tpu.index.build import (TOO_MANY_POS, SeedIndex,
-                                           unbias_i32_to_u32)
-
+from .. import dna
 from ..device import require_device
+from ..index.build import TOO_MANY_POS, SeedIndex, unbias_i32_to_u32
 from ..ops import bitops, search
 from . import quality
+from .clippers import CONSECUTIVE_MATCHES_MIN, MASK_READ_LENGTH_MIN
 
 BUCKET_WIDTH = 16
 

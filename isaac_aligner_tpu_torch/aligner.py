@@ -21,19 +21,19 @@ import time
 import numpy as np
 import torch
 
-from isaac_aligner_tpu import dna
-from isaac_aligner_tpu.align import clippers
-from isaac_aligner_tpu.index.build import SeedIndex
-from isaac_aligner_tpu.io import sam
-from isaac_aligner_tpu.io.fastq import ReadBatch
-from isaac_aligner_tpu.utils import tracing
-
+from . import dna
+from .align import clippers
 from .align.gapped import BWA, GapScoring, polish_gapped
 from .align.indel import polish_simple_indels
 from .align.pipeline import (AlignConfig, IndexArrays, align_batch,
                              bucket_params_for, default_seed_offsets,
                              genome_has_n_for, mask_tail_device, prepare_index)
 from .device import require_device
+from .index.build import SeedIndex
+from .io import sam
+from .io.fastq import ReadBatch
+from .ops import sw
+from .utils import tracing
 
 
 def _accumulate_finder_stats(acc: dict, res: dict) -> None:
@@ -112,7 +112,12 @@ class Aligner:
                cfg: AlignConfig | None = None, *, device,
                **opts) -> "Aligner":
         """Aligner on `device` ("cuda", "cuda:N" or "cpu"; "cuda" without a
-        card raises)."""
+        card raises, as do reads longer than the SW kernel's `sw.MAX_LEN`
+        on a card)."""
+        if (torch.device(device).type == "cuda" and read_len is not None
+                and read_len > sw.MAX_LEN):
+            raise ValueError(f"read_len {read_len} > {sw.MAX_LEN}, the longest "
+                             f"read the CUDA banded SW kernel takes")
         dev = require_device(device)
         if cfg is None:
             offsets = default_seed_offsets(read_len or index.seed_len,

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from isaac_aligner_tpu import dna
+from .. import dna
 
 #: low 32 bits of an int64 carrier
 U32_MASK = 0xFFFFFFFF

@@ -27,6 +27,9 @@ BAND = 16
 NEG = -1.0e9
 #: query rows packed per traceback word (6 bits of state codes per row)
 TB_PACK = 5
+#: longest query the CUDA kernel takes (its shared-memory stage grows with
+#: L; csrc/banded_sw.cu MAX_L)
+MAX_LEN = 1024
 
 # the reference's --gap-scoring presets (match, mismatch, open, extend)
 BWA_SCORES = (0.0, -3.0, -11.0, -4.0)
@@ -103,7 +106,13 @@ def _launcher():
     """The C launcher of csrc/banded_sw.cu (built on first call), typed."""
     from ._build import load_kernel
 
-    fn = load_kernel("banded_sw").banded_sw_launch
+    lib = load_kernel("banded_sw")
+    lib.banded_sw_max_len.argtypes = []
+    lib.banded_sw_max_len.restype = ctypes.c_int
+    if lib.banded_sw_max_len() != MAX_LEN:
+        raise RuntimeError(f"csrc/banded_sw.cu takes L <= "
+                           f"{lib.banded_sw_max_len()}, sw.MAX_LEN is {MAX_LEN}")
+    fn = lib.banded_sw_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
@@ -113,26 +122,28 @@ def _launcher():
 
 
 def _launch_cuda(query: torch.Tensor, db: torch.Tensor, scores):
-    fn = _launcher()
+    """Launch the kernel on the pair-major inputs; it writes the public
+    layout itself, so nothing is transposed or copied (int32 codes, which
+    the gapped polish never sends, are narrowed to bytes first)."""
     n, l = query.shape
-    groups = -(-l // TB_PACK)
-    # pairs on the fast axis: neighbouring threads read neighbouring bytes
-    q_t = query.to(torch.uint8).t().contiguous()          # [L, N]
-    db_t = db.to(torch.uint8).t().contiguous()            # [L + 15, N]
-    gfin_t = torch.empty((BAND, n), dtype=torch.float32, device=query.device)
-    tb_t = torch.empty((groups * BAND, n), dtype=torch.int32,
-                       device=query.device)
+    if l > MAX_LEN:
+        raise ValueError(f"banded_sw kernel takes L <= {MAX_LEN}, got {l}")
+    fn = _launcher()
+    dev = query.device
+    q8 = query if query.dtype == torch.uint8 else query.to(torch.uint8)
+    db8 = db if db.dtype == torch.uint8 else db.to(torch.uint8)
+    gfin = torch.empty((n, BAND), dtype=torch.float32, device=dev)
+    tb = torch.empty((n, -(-l // TB_PACK), BAND), dtype=torch.int32, device=dev)
     # the .so launches through the CUDA runtime's current device
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = fn(q_t.data_ptr(), db_t.data_ptr(), n, l,
-                *(float(s) for s in scores), gfin_t.data_ptr(),
-                tb_t.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q8.data_ptr(), db8.data_ptr(), n, l,
+                *(float(s) for s in scores), gfin.data_ptr(), tb.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"banded_sw kernel launch failed: CUDA error {rc}")
     banded_sw.launches += 1
-    return (gfin_t.t().contiguous(),
-            tb_t.reshape(groups, BAND, n).permute(2, 0, 1).contiguous())
+    return gfin, tb
 
 
 def banded_sw(query: torch.Tensor, db: torch.Tensor, scores=BWA_SCORES):
@@ -146,7 +157,7 @@ def banded_sw(query: torch.Tensor, db: torch.Tensor, scores=BWA_SCORES):
     Returns (gfin f32 [N, BAND], tb int32 [N, ceil(L/TB_PACK), BAND]):
     last-row G scores and packed traceback codes (unpack with `unpack_tb`).
     CPU tensors run `banded_sw_torch`; CUDA tensors launch the kernel
-    (counted in `banded_sw.launches`) or raise.
+    (counted in `banded_sw.launches`) or raise, also for L > MAX_LEN.
     """
     if query.dim() != 2 or db.dim() != 2:
         raise ValueError(f"want 2-D query/db, got {tuple(query.shape)}, "

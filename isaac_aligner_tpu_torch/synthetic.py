@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from isaac_aligner_tpu.io.fasta import ContigMeta, Genome
+from .io.fasta import ContigMeta, Genome
 
 #: (element length, copies, divergence) of the benchmark's families
 ECOLI_FAMILIES = ((600, 200, 0.02), (2000, 30, 0.01))

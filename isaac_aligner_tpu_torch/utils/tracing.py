@@ -1,0 +1,89 @@
+"""Logging and per-read forensic tracing.
+
+The port's own copy of the parts of `isaac_aligner_tpu/utils/tracing.py`
+that it calls, unchanged, with the same environment variables.  Reference
+analogs (src/c++/include/common/Debug.hh):
+  - ISAAC_THREAD_CERR (:40-62)  -> log(): timestamped stderr lines
+  - ISAAC_THREAD_CERR_DEV_TRACE_CLUSTER_ID (:160-171) -> read tracing:
+    runtime-gated by the ISAAC_TPU_TRACE_READS env var (comma-separated
+    read names) or set_trace_reads(), and dumps each traced read's
+    journey through the device pipeline (seed hits, candidates, scores,
+    final placement) from the result arrays.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+_enabled = os.environ.get("ISAAC_TPU_LOG", "") not in ("", "0")
+_trace_names: set[str] | None = None
+
+
+def log(msg: str, *, force: bool = False) -> None:
+    """Timestamped stderr log line (ISAAC_THREAD_CERR analog)."""
+    if _enabled or force:
+        ts = time.strftime("%Y-%m-%d %H:%M:%S")
+        print(f"{ts}\t[isaac-tpu]\t{msg}", file=sys.stderr, flush=True)
+
+
+# -- per-read tracing -------------------------------------------------------
+
+def set_trace_reads(names) -> None:
+    """Enable forensic tracing for these read names (None disables)."""
+    global _trace_names
+    _trace_names = set(names) if names is not None else None
+
+
+def _active_trace_names() -> set[str]:
+    if _trace_names is not None:
+        return _trace_names
+    env = os.environ.get("ISAAC_TPU_TRACE_READS", "")
+    return {n for n in env.split(",") if n}
+
+
+def trace_batch(names: list[str], res: dict, suffix: str = "") -> None:
+    """Dump the pipeline's view of any traced read in this batch.
+
+    `res` is the host-side result dict of the Aligner
+    (align/pipeline.py finalize_* keys, optionally suffixed _1/_2).
+    """
+    targets = _active_trace_names()
+    if not targets:
+        return
+    k = lambda base: base + suffix
+
+    def get(base, i):
+        arr = res.get(k(base))
+        return None if arr is None else arr[i]
+
+    for i, name in enumerate(names):
+        if name not in targets:
+            continue
+        lines = [f"TRACE read {name!r}{suffix}:"]
+        for base in ("aligned", "start", "reverse", "mapq", "mismatches",
+                     "edit_distance", "log_prob", "others_sum",
+                     "num_candidates", "candidate_overflow", "cigar",
+                     "properly_paired", "rescued"):
+            v = get(base, i)
+            if v is not None:
+                lines.append(f"  {base} = {v}")
+        cs, cv = res.get(k("cand_start")), res.get(k("cand_valid"))
+        if cs is not None and cv is not None:
+            cm = res.get(k("cand_mismatches"))
+            ci = i
+            comp = res.get(k("cand_rows"))
+            if comp is not None:
+                # compacted candidate block: find this row's slot
+                hits = [j for j, r in enumerate(comp) if int(r) == i]
+                ci = hits[0] if hits else None
+            if ci is not None:
+                cands = [
+                    f"(start={int(cs[ci, j])}"
+                    + (f", mm={int(cm[ci, j])}" if cm is not None else "")
+                    + ")"
+                    for j in range(cs.shape[1]) if bool(cv[ci, j])]
+                lines.append(
+                    f"  candidates[{len(cands)}] = {' '.join(cands)}")
+        log("\n".join(lines), force=True)

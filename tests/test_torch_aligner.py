@@ -26,6 +26,7 @@ from isaac_aligner_tpu_torch.align import pipeline as tpipe
 from isaac_aligner_tpu_torch.ops import sw
 
 from test_golden_snapshot import GOLDEN_SE, _batch, _core, _fixture
+from test_torch_host import to_port_index
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -42,7 +43,8 @@ def test_single_end_golden():
     junk = dna.encode("".join("ACGT"[(7 * i + 3) % 4] for i in range(L)))
     batch = _batch([exact, snp, rc, del5, junk],
                    ["exact", "snp", "rc", "del5", "junk"])
-    recs = Aligner.create(index, read_len=L, base_quality_cutoff=0,
+    recs = Aligner.create(to_port_index(index), read_len=L,
+                          base_quality_cutoff=0,
                           device="cpu").align_to_sam(batch)
     assert [_core(r) for r in recs] == GOLDEN_SE
 
@@ -93,7 +95,8 @@ def test_sam_records_equal_jax_aligner_on_indel_fixture():
     index, batch = _indel_fixture()
     want = jaligner.Aligner.create(index, read_len=100).align_to_sam(batch)
     before = sw.banded_sw.launches
-    got = Aligner.create(index, read_len=100, device="cpu").align_to_sam(batch)
+    got = Aligner.create(to_port_index(index), read_len=100,
+                         device="cpu").align_to_sam(batch)
     assert [r.to_line() for r in got] == [r.to_line() for r in want]
     cigars = [r.cigar for r in got]
     # the banded-SW polish found the short indels ...
@@ -106,7 +109,7 @@ def test_sam_records_equal_jax_aligner_on_indel_fixture():
 
 def test_align_to_sam_many_in_order():
     index, batch = _indel_fixture()
-    al = Aligner.create(index, read_len=100, device="cpu")
+    al = Aligner.create(to_port_index(index), read_len=100, device="cpu")
     halves = [ReadBatch(names=batch.names[a:b], bases=batch.bases[a:b],
                         quals=batch.quals[a:b], lengths=batch.lengths[a:b])
               for a, b in ((0, 32), (32, 64))]
@@ -156,7 +159,7 @@ def test_index_arrays_from_numpy_matches_prepare_index():
 
 
 def test_create_on_missing_card_raises():
-    _genome, index = _fixture()
+    index = to_port_index(_fixture()[1])
     if torch.cuda.is_available():
         assert Aligner.create(index, read_len=80,
                               device="cuda").device.type == "cuda"
@@ -165,13 +168,26 @@ def test_create_on_missing_card_raises():
             Aligner.create(index, read_len=80, device="cuda")
 
 
+def test_create_rejects_reads_over_kernel_limit_on_cuda():
+    """The CUDA SW kernel's length limit shows at create, not at the first
+    gapped polish; the CPU path has no such limit."""
+    index = to_port_index(_fixture()[1])
+    with pytest.raises(ValueError, match="MAX_LEN|longest read"):
+        Aligner.create(index, read_len=sw.MAX_LEN + 1, device="cuda")
+    assert Aligner.create(index, read_len=sw.MAX_LEN + 1,
+                          device="cpu").device.type == "cpu"
+
+
 def test_port_runs_without_jax():
-    """What the GPU machine sees: no jax at all.  The slice runs on cpu."""
+    """What the GPU machine sees: neither jax nor the JAX package.  The
+    slice runs on cpu."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["isaac_aligner_tpu"] = None
         import numpy as np
-        from isaac_aligner_tpu_torch.host import batch_from_reads, build_index
+        from isaac_aligner_tpu_torch.index.build import build_index
+        from isaac_aligner_tpu_torch.io.fastq import batch_from_reads
         from isaac_aligner_tpu_torch import synthetic
         from isaac_aligner_tpu_torch.aligner import Aligner
         rng = np.random.default_rng(0)
@@ -184,8 +200,9 @@ def test_port_runs_without_jax():
                                  ["I" * 100] * 64)
         al = Aligner.create(index, read_len=100, device="cpu")
         recs = [r for recs in al.align_to_sam_many([batch]) for r in recs]
-        assert "jax" not in [m.split(".")[0] for m in sys.modules
-                             if sys.modules[m] is not None]
+        loaded = {m.split(".")[0] for m in sys.modules
+                  if sys.modules[m] is not None}
+        assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded
         mapped = sum(r.is_mapped for r in recs)
         assert mapped >= 56, mapped
         print("OK", mapped)

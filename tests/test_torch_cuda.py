@@ -22,36 +22,82 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pairs(n, l, seed):
+def _pairs(n, l, seed, offsets=None):
+    """Random pairs; the even ones are near-matches (5% substitutions) at
+    a random band offset, or at `offsets` in turn, so real tracebacks are
+    compared, not only the NEG sentinel region."""
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 5, (n, l)).astype(np.int32)
     db = rng.integers(0, 5, (n, l + sw.BAND - 1)).astype(np.int32)
-    for i in range(0, n, 2):            # near-matches: real tracebacks
-        off = int(rng.integers(0, sw.BAND))
-        mut = rng.random(l) < 0.05
-        q[i] = np.where(mut, rng.integers(0, 4, l), db[i, off : off + l])
+    rows = np.arange(0, n, 2) if offsets is None else np.arange(n)
+    off = (rng.integers(0, sw.BAND, rows.size) if offsets is None
+           else np.resize(np.asarray(offsets), rows.size))
+    near = db[rows[:, None], off[:, None] + np.arange(l)[None, :]]
+    mut = rng.random(near.shape) < 0.05
+    q[rows] = np.where(mut, rng.integers(0, 4, near.shape), near)
     return q, db
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("scores", [sw.BWA_SCORES, sw.ELAND_SCORES],
-                         ids=["bwa", "eland"])
-@pytest.mark.parametrize("n,l", [(1000, 100), (300, 101), (1, 37)])
-def test_banded_sw_kernel_bit_equal_to_plain_and_numpy(cuda_device, n, l,
-                                                       scores):
-    q, db = _pairs(n, l, seed=n + l)
-    qd = torch.from_numpy(q).to(cuda_device)
-    dbd = torch.from_numpy(db).to(cuda_device)
+def _check_kernel(dev, q, db, scores, oracle_rows=64):
+    """One launch, bit-equal to banded_sw_torch on the same CUDA tensors
+    and, on the first `oracle_rows` pairs, to the numpy oracle."""
+    qd = torch.from_numpy(q.astype(np.uint8)).to(dev)
+    dbd = torch.from_numpy(db.astype(np.uint8)).to(dev)
     before = sw.banded_sw.launches
     g_k, tb_k = sw.banded_sw(qd, dbd, scores)
     torch.cuda.synchronize()
     assert sw.banded_sw.launches == before + 1
     g_p, tb_p = sw.banded_sw_torch(qd, dbd, scores)
     assert torch.equal(g_k, g_p)
-    assert torch.equal(tb_k, tb_p)
-    g_n, tb_n = sw.banded_sw_numpy_batch(q[:64], db[:64], scores)
-    np.testing.assert_array_equal(g_k[:64].cpu().numpy(), g_n)
-    np.testing.assert_array_equal(tb_k[:64].cpu().numpy(), tb_n)
+    assert torch.equal(tb_k, tb_p), int((tb_k != tb_p).sum())
+    g_n, tb_n = sw.banded_sw_numpy_batch(q[:oracle_rows], db[:oracle_rows],
+                                         scores)
+    np.testing.assert_array_equal(g_k[:oracle_rows].cpu().numpy(), g_n)
+    np.testing.assert_array_equal(tb_k[:oracle_rows].cpu().numpy(), tb_n)
+    return g_k, tb_k
+
+
+# lengths 1..400 (2 x 250 bp libraries) at the polish's batch; batch sizes
+# that leave a ragged last warp, up to more pairs than one wave holds
+LENGTHS = [1, 4, 5, 100, 101, 150, 251, 400]
+BATCHES = [1, 3, 896, 8_192, 65_537]
+SHAPES = ([(1000, 100), (300, 101), (1, 37)] + [(896, l) for l in LENGTHS]
+          + [(n, 100) for n in BATCHES] + [(65_537, 150), (5, sw.MAX_LEN)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", [sw.BWA_SCORES, sw.ELAND_SCORES],
+                         ids=["bwa", "eland"])
+@pytest.mark.parametrize("n,l", SHAPES)
+def test_banded_sw_kernel_bit_equal_to_plain_and_numpy(cuda_device, n, l,
+                                                       scores):
+    q, db = _pairs(n, l, seed=n + l)
+    _check_kernel(cuda_device, q, db, scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", [sw.BWA_SCORES, sw.ELAND_SCORES],
+                         ids=["bwa", "eland"])
+@pytest.mark.parametrize("l", [100, 101])
+def test_banded_sw_kernel_band_edges(cuda_device, l, scores):
+    """Every pair a near-match at band offset 0 or 15: the lanes at both
+    edges of the band carry the real tracebacks."""
+    q, db = _pairs(899, l, seed=l, offsets=[0, sw.BAND - 1])
+    g_k, _tb = _check_kernel(cuda_device, q, db, scores, oracle_rows=128)
+    exit_d = g_k.argmax(dim=1).cpu().numpy()
+    assert (exit_d[0::2] == 0).mean() > 0.9
+    assert (exit_d[1::2] == sw.BAND - 1).mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_banded_sw_over_max_len_raises(cuda_device):
+    q = torch.zeros((3, sw.MAX_LEN + 1), dtype=torch.uint8, device=cuda_device)
+    db = torch.zeros((3, sw.MAX_LEN + sw.BAND), dtype=torch.uint8,
+                     device=cuda_device)
+    before = sw.banded_sw.launches
+    with pytest.raises(ValueError, match="L <="):
+        sw.banded_sw(q, db)
+    assert sw.banded_sw.launches == before
 
 
 @pytest.mark.cuda
