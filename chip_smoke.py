@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's single-end main path (FASTQ -> Aligner.create(...,
-device="cuda") -> align_to_sam_many -> SAM) at the benchmark's E. coli
-scale and checks every hand-written kernel on its path against its plain
-torch version.  Phases, one line each:
+Drives the port's single-end main paths at the benchmark's E. coli scale:
+the library (FASTQ -> Aligner.create(..., device="cuda") ->
+align_to_sam_many -> SAM) and the workflow users run (FASTQ ->
+AlignWorkflow on "cuda" -> sorted, duplicate-marked, gap-realigned BAM
+with .bai and .md5), and checks every hand-written kernel on their path
+against its plain torch version.  Phases, one line each:
 
   1. the card (torch.cuda must be available) with its name and power limit;
   2. build the CUDA kernels from the repo's sources (nvcc, sm_90a);
@@ -15,19 +17,30 @@ torch version.  Phases, one line each:
      tensors and, on 256 pairs, to the numpy oracle; L over the kernel's
      limit raises; times both at 8,192 x 100 (and again at the slice's own
      launch shape after phase 4, the times the kernel line reports);
-  4. slice: 4.6 Mbp repeat-rich genome from --seed, 32-mer index, 4 x 32,768
-     reads of 100 bp (1% substitutions, half reverse complemented, 3% with
-     a 1-8 bp indel) through the aligner on the card; checks the aligned
-     fraction, placement, kernel launches and gapped CIGARs;
-  5. card vs CPU: one 2,048-read batch through the port on both devices
-     gives the same SAM core fields (MAPQ: floor flips only).
+  4. library slice: 4.6 Mbp repeat-rich genome from --seed, 32-mer index,
+     4 x 32,768 reads of 100 bp (1% substitutions, half reverse
+     complemented, 3% with a 1-8 bp indel) through the aligner on the card;
+     checks the aligned fraction, placement, kernel launches and gapped
+     CIGARs;
+  5. workflow: the same genome's index saved to disk and 524,288 reads of
+     100 bp simulated as in phase 4, written as FASTQ, through
+     AlignWorkflow on "cuda" at the workflow defaults (batch 32,768, the
+     output process on); reads sorted.bam back and checks the record count,
+     coordinate order, .bai and .md5, the aligned fraction, placement and
+     kernel launches; prints FASTQ->BAM reads/s, the stage split, the Build
+     phase's time and counts, and which native host libraries loaded;
+  6. card vs CPU: the first 4,096 of phase 5's reads through the workflow
+     on both devices give the same (qname, flag, pos, CIGAR, NM) (MAPQ:
+     floor flips only), and one 2,048-read batch through the library gives
+     the same SAM core fields.
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
-Then one JSON line of kernel results, the card line, and the last line
-{"ok": true, "device": {...}}.  Any failed check raises: the exit code is
-non-zero and no result line is printed.
+Then one JSON line of kernel results (launches: the workflow's run of
+phase 5), the card line, and the last line {"ok": true, "device": {...}}.
+Any failed check raises: the exit code is non-zero and no result line is
+printed.
 
     python3 chip_smoke.py [--seed N]
 """
@@ -43,18 +56,28 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from isaac_aligner_tpu_torch import synthetic
-from isaac_aligner_tpu_torch.aligner import Aligner
-from isaac_aligner_tpu_torch.index.build import build_index
-from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
-from isaac_aligner_tpu_torch.io.sam import write_sam
-from isaac_aligner_tpu_torch.ops import _build, sw
+# phase 5's output process is spawned and re-imports this file under the
+# name __mp_main__: it needs none of these (it imports its own host modules)
+if __name__ != "__mp_main__":
+    import torch
+
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.aligner import Aligner
+    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.io.bam import read_bam
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
+    from isaac_aligner_tpu_torch.io.sam import write_sam
+    from isaac_aligner_tpu_torch.native import build as native
+    from isaac_aligner_tpu_torch.ops import _build, sw
+    from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
+                                                        WorkflowOptions)
 
 READ_LEN = 100
 BATCH = 32_768
 N_BATCHES = 4
+WF_READS = 524_288          # the JAX benchmark's e2e_se size (bench.py:62)
+WF_SUBSET = 4_096
 SW_PAIRS = 8_192
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
@@ -199,7 +222,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/5] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/6] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -254,7 +277,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/5] slice: {genome.total_length} bp genome, "
+    print(f"[4/6] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -278,16 +301,117 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/5] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/6] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
           f"{timing['plain_ms']:.2f} ms; SAM records "
           f"{al.timings['records']:.2f} s", flush=True)
-    return index, batches[0], al, launches, timing
+    return genome, index, batches[0], al, timing
 
 
-def phase_card_vs_cpu(index, batch: ReadBatch, al_gpu: Aligner) -> None:
+def run_workflow(index_dir: Path, fastq: Path, out: Path, device: str,
+                 batch: int) -> dict:
+    """AlignWorkflow at its defaults; returns the run's Stats JSON files."""
+    AlignWorkflow(WorkflowOptions(
+        reference=str(index_dir), output_dir=str(out), fastq1=str(fastq),
+        batch_size=batch, device=device)).run()
+    return {name: json.loads((out / "Stats" / f"{name}.json").read_text())
+            for name in ("MatchSelectorStats", "BuildStats")}
+
+
+def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
+    """FASTQ -> sorted BAM through the port's workflow on the card at the
+    JAX benchmark's e2e_se size; returns the kernel's launches."""
+    rng = np.random.default_rng(args.seed + 2)
+    t0 = time.perf_counter()
+    index.save(tmp / "idx")
+    sim = synthetic.make_reads(rng, genome.codes, WF_READS,
+                               read_len=READ_LEN, indel_frac=0.03, max_indel=8)
+    write_fastq(tmp / "wf.fq", sim.bases)
+    write_fastq(tmp / "subset.fq", sim.bases[:WF_SUBSET])
+    setup_s = time.perf_counter() - t0
+
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx", tmp / "wf.fq", tmp / "wf", "cuda", BATCH)
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    libs = native.loaded()
+
+    out = tmp / "wf" / "sorted.bam"
+    t0 = time.perf_counter()
+    _text, refs, recs = read_bam(out)
+    read_s = time.perf_counter() - t0
+    offsets = {c.name: c.offset for c in genome.contigs}
+    ref_index = {name: i for i, (name, _len) in enumerate(refs)}
+    mapped = np.array([r.is_mapped for r in recs])
+    idx = np.array([int(r.qname[1:]) for r in recs])
+    gpos = np.array([offsets[r.rname] + r.pos - 1 if r.is_mapped else -1
+                     for r in recs])
+    keys = [(ref_index[r.rname], r.pos) for r in recs if r.is_mapped]
+    ordered = all(a <= b for a, b in zip(keys, keys[1:]))
+    first_unmapped = int(np.argmin(mapped)) if not mapped.all() else len(recs)
+    aligned_frac = float(mapped.mean())
+    placed_frac = float((mapped & (np.abs(gpos - sim.starts[idx]) <= 8)).mean())
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
+    print(f"[5/6] workflow: {len(recs)} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+          f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
+          f"{stages}; build_seconds {build['build_seconds']:.2f} s, "
+          f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
+          f"realigned {build['realigned']}); aligned {aligned_frac:.4f}, "
+          f"within 8 bp of truth {placed_frac:.4f}, banded_sw launches "
+          f"{launches}; native host libraries {libs}; read_bam {read_s:.1f} "
+          f"s, setup {setup_s:.1f} s [{card}]", flush=True)
+    if len(recs) != WF_READS:
+        raise AssertionError(f"{len(recs)} BAM records for {WF_READS} reads")
+    if not ordered or mapped[first_unmapped:].any():
+        raise AssertionError("sorted.bam is not in coordinate order")
+    for ext in (".bai", ".md5"):
+        if not Path(str(out) + ext).is_file():
+            raise AssertionError(f"no sorted.bam{ext}")
+    if aligned_frac < 0.95:
+        raise AssertionError(f"aligned fraction {aligned_frac} < 0.95")
+    if placed_frac < 0.95:
+        raise AssertionError(f"placement fraction {placed_frac} < 0.95")
+    if launches <= 0:
+        raise AssertionError("the workflow never launched the banded_sw kernel")
+    return launches
+
+
+def core_fields(path: Path) -> dict:
+    """{qname: ((flag, pos, cigar, NM), mapq)} of a BAM's records."""
+    return {r.qname: ((r.flag, r.pos, r.cigar, r.tags.get("NM")), r.mapq)
+            for r in read_bam(path)[2]}
+
+
+def mapq_flips(pairs) -> int:
+    """Rows whose MAPQ differs; raises past the floor-flip bound (at most
+    1 apart, on at most 0.5% of the rows)."""
+    dq = np.array([abs(a - b) for a, b in pairs])
+    flips = int((dq > 0).sum())
+    if dq.max(initial=0) > 1 or flips > 0.005 * len(dq):
+        raise AssertionError(f"MAPQ card vs CPU: max diff {dq.max()}, "
+                             f"{flips} rows differ")
+    return flips
+
+
+def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
+                      al_gpu: Aligner) -> None:
+    runs = {}
+    for device in ("cuda", "cpu"):
+        run_workflow(tmp / "idx", tmp / "subset.fq", tmp / f"sub_{device}",
+                     device, WF_SUBSET)
+        runs[device] = core_fields(tmp / f"sub_{device}" / "sorted.bam")
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    diff = [(q, gpu[q][0], cpu.get(q, (None,))[0]) for q in gpu
+            if gpu[q][0] != cpu.get(q, (None,))[0]]
+    if len(gpu) != WF_SUBSET or gpu.keys() != cpu.keys() or diff:
+        raise AssertionError(f"workflow card vs CPU: core fields differ on "
+                             f"{len(diff)} reads, e.g. {diff[:3]}")
+    wf_flips = mapq_flips((gpu[q][1], cpu[q][1]) for q in gpu)
+
     sub = ReadBatch(names=batch.names[:2048], bases=batch.bases[:2048],
                     quals=batch.quals[:2048], lengths=batch.lengths[:2048])
     gpu = al_gpu.align_to_sam(sub)
@@ -301,13 +425,11 @@ def phase_card_vs_cpu(index, batch: ReadBatch, al_gpu: Aligner) -> None:
     if len(gpu) != len(cpu) or diff:
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
-    dq = np.array([abs(g.mapq - c.mapq) for g, c in zip(gpu, cpu)])
-    flips = int((dq > 0).sum())
-    if dq.max(initial=0) > 1 or flips > 0.005 * len(dq):
-        raise AssertionError(f"MAPQ card vs CPU: max diff {dq.max()}, "
-                             f"{flips} rows differ")
-    print(f"[5/5] card vs CPU: {len(gpu)} reads, qname/flag/pos/cigar/NM "
-          f"equal, MAPQ floor flips {flips}", flush=True)
+    flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
+    print(f"[6/6] card vs CPU: workflow on {WF_SUBSET} reads, "
+          f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
+          f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
+          flush=True)
 
 
 def main() -> None:
@@ -320,21 +442,22 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/5] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/6] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/5] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/6] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-        index, batch0, al, launches, timing = phase_slice(args, dev, card,
-                                                          Path(d))
-    phase_card_vs_cpu(index, batch0, al)
+        genome, index, batch0, al, timing = phase_slice(args, dev, card,
+                                                        Path(d))
+        launches = phase_workflow(args, genome, index, card, Path(d))
+        phase_card_vs_cpu(Path(d), index, batch0, al)
     jax_mods = sorted(m for m in sys.modules if m.startswith("jax")
                       or m.split(".")[0] == "isaac_aligner_tpu")
     if jax_mods:

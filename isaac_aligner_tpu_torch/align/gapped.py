@@ -80,6 +80,13 @@ class GapScoring:
 BWA = GapScoring()
 ELAND = GapScoring(2.0, -1.0, -15.0, -3.0, -25.0)
 
+# module-level defaults for callers that do not thread a GapScoring (the
+# Build phase's known-gap realignment, build/realign.py)
+NORM_MISMATCH = BWA.norm_mismatch
+NORM_OPEN = BWA.norm_open
+NORM_EXTEND = BWA.norm_extend
+NORM_MAX_EXTEND = BWA.norm_max_extend
+
 
 def _flanks(local_pos: int, read_len: int, contig_len: int) -> tuple[int, int] | None:
     """Left/right reference flanks summing to BAND-1 (getFlanks)."""

@@ -109,11 +109,11 @@ class Aligner:
 
     @staticmethod
     def create(index: SeedIndex, read_len: int | None = None,
-               cfg: AlignConfig | None = None, *, device,
+               cfg: AlignConfig | None = None, *, device="cuda",
                **opts) -> "Aligner":
-        """Aligner on `device` ("cuda", "cuda:N" or "cpu"; "cuda" without a
-        card raises, as do reads longer than the SW kernel's `sw.MAX_LEN`
-        on a card)."""
+        """Aligner on `device` ("cuda" by default, "cuda:N" or "cpu";
+        "cuda" without a card raises, as do reads longer than the SW
+        kernel's `sw.MAX_LEN` on a card)."""
         if (torch.device(device).type == "cuda" and read_len is not None
                 and read_len > sw.MAX_LEN):
             raise ValueError(f"read_len {read_len} > {sw.MAX_LEN}, the longest "

@@ -1,10 +1,13 @@
-"""Logging and per-read forensic tracing.
+"""Logging, phase timing, and per-read forensic tracing.
 
-The port's own copy of the parts of `isaac_aligner_tpu/utils/tracing.py`
-that it calls, unchanged, with the same environment variables.  Reference
-analogs (src/c++/include/common/Debug.hh):
+The port's own copy of `isaac_aligner_tpu/utils/tracing.py`, unchanged,
+with the same environment variables.  Reference analogs
+(src/c++/include/common/Debug.hh):
   - ISAAC_THREAD_CERR (:40-62)  -> log(): timestamped stderr lines
+  - ISAAC_TRACE_STAT  (:59-62)  -> phase(): wall/cpu clock + RSS from
+    /proc/self/statm around every major phase
   - ISAAC_THREAD_CERR_DEV_TRACE_CLUSTER_ID (:160-171) -> read tracing:
+    the reference compiles per-cluster tracing in/out; here it is
     runtime-gated by the ISAAC_TPU_TRACE_READS env var (comma-separated
     read names) or set_trace_reads(), and dumps each traced read's
     journey through the device pipeline (seed hits, candidates, scores,
@@ -13,6 +16,7 @@ analogs (src/c++/include/common/Debug.hh):
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -21,11 +25,37 @@ _enabled = os.environ.get("ISAAC_TPU_LOG", "") not in ("", "0")
 _trace_names: set[str] | None = None
 
 
+def enable_logging(on: bool = True) -> None:
+    global _enabled
+    _enabled = on
+
+
 def log(msg: str, *, force: bool = False) -> None:
     """Timestamped stderr log line (ISAAC_THREAD_CERR analog)."""
     if _enabled or force:
         ts = time.strftime("%Y-%m-%d %H:%M:%S")
         print(f"{ts}\t[isaac-tpu]\t{msg}", file=sys.stderr, flush=True)
+
+
+def _rss_mb() -> float:
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 1e6
+    except (OSError, ValueError, IndexError):
+        return float("nan")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Log wall/cpu time + RSS around a pipeline phase (ISAAC_TRACE_STAT)."""
+    t0, c0 = time.time(), time.process_time()
+    log(f"{name}: start (rss {_rss_mb():.0f} MB)")
+    try:
+        yield
+    finally:
+        log(f"{name}: done in {time.time() - t0:.2f}s wall / "
+            f"{time.process_time() - c0:.2f}s cpu (rss {_rss_mb():.0f} MB)")
 
 
 # -- per-read tracing -------------------------------------------------------

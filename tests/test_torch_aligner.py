@@ -3,6 +3,7 @@ records on an indel fixture, config parity, index conversion, and the
 port running with jax unavailable."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 import textwrap
@@ -166,6 +167,8 @@ def test_create_on_missing_card_raises():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             Aligner.create(index, read_len=80, device="cuda")
+        with pytest.raises(RuntimeError, match="cuda"):  # the default
+            Aligner.create(index, read_len=80)
 
 
 def test_create_rejects_reads_over_kernel_limit_on_cuda():
@@ -178,36 +181,65 @@ def test_create_rejects_reads_over_kernel_limit_on_cuda():
                           device="cpu").device.type == "cpu"
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """What the GPU machine sees: neither jax nor the JAX package.  The
-    slice runs on cpu."""
+    library slice and the workflow (FASTQ -> sorted BAM, with its spawned
+    output process, which re-runs this script's top) run on cpu."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["isaac_aligner_tpu"] = None
+        from pathlib import Path
         import numpy as np
         from isaac_aligner_tpu_torch.index.build import build_index
+        from isaac_aligner_tpu_torch.io.bam import read_bam
         from isaac_aligner_tpu_torch.io.fastq import batch_from_reads
         from isaac_aligner_tpu_torch import synthetic
         from isaac_aligner_tpu_torch.aligner import Aligner
-        rng = np.random.default_rng(0)
-        genome = synthetic.make_genome(rng, 20_000, families=((300, 3, 0.02),),
-                                       n_island=(15_000, 100))
-        index = build_index(genome, seed_len=32)
-        sim = synthetic.make_reads(rng, genome.codes, 64, indel_frac=0.1)
-        seqs = ["".join("ACGTN"[c] for c in r) for r in sim.bases]
-        batch = batch_from_reads([f"r{i}" for i in range(64)], seqs,
-                                 ["I" * 100] * 64)
-        al = Aligner.create(index, read_len=100, device="cpu")
-        recs = [r for recs in al.align_to_sam_many([batch]) for r in recs]
-        loaded = {m.split(".")[0] for m in sys.modules
-                  if sys.modules[m] is not None}
-        assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded
-        mapped = sum(r.is_mapped for r in recs)
-        assert mapped >= 56, mapped
-        print("OK", mapped)
+        from isaac_aligner_tpu_torch.workflow import output_proc
+        from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
+                                                            WorkflowOptions)
+
+
+        def main(d):
+            rng = np.random.default_rng(0)
+            genome = synthetic.make_genome(rng, 20_000,
+                                           families=((300, 3, 0.02),),
+                                           n_island=(15_000, 100))
+            index = build_index(genome, seed_len=32)
+            sim = synthetic.make_reads(rng, genome.codes, 64, indel_frac=0.1)
+            seqs = ["".join("ACGTN"[c] for c in r) for r in sim.bases]
+            batch = batch_from_reads([f"r{i}" for i in range(64)], seqs,
+                                     ["I" * 100] * 64)
+            al = Aligner.create(index, read_len=100, device="cpu")
+            recs = [r for recs in al.align_to_sam_many([batch]) for r in recs]
+            mapped = sum(r.is_mapped for r in recs)
+            assert mapped >= 56, mapped
+            index.save(d / "idx")
+            with open(d / "r1.fq", "w") as f:
+                for i, s in enumerate(seqs):
+                    f.write(f"@r{i}\\n{s}\\n+\\n{'I' * 100}\\n")
+            assert output_proc.enabled()
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "idx"), output_dir=str(d / "out"),
+                fastq1=str(d / "r1.fq"), batch_size=32,
+                device="cpu")).run()
+            bam = read_bam(d / "out" / "sorted.bam")[2]
+            assert len(bam) == 64
+            assert sum(r.is_mapped for r in bam) == mapped
+            loaded = {m.split(".")[0] for m in sys.modules
+                      if sys.modules[m] is not None}
+            assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded
+            print("OK", mapped)
+
+
+        if __name__ == "__main__":
+            main(Path(sys.argv[1]))
     """)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+    (tmp_path / "run.py").write_text(script)
+    proc = subprocess.run([sys.executable, str(tmp_path / "run.py"),
+                           str(tmp_path)], cwd=REPO, capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OK" in proc.stdout
