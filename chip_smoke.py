@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's single-end main paths at the benchmark's E. coli scale:
-the library (FASTQ -> Aligner.create(..., device="cuda") ->
-align_to_sam_many -> SAM) and the workflow users run (FASTQ ->
-AlignWorkflow on "cuda" -> sorted, duplicate-marked, gap-realigned BAM
-with .bai and .md5), and checks every hand-written kernel on their path
-against its plain torch version.  Phases, one line each:
+Drives the port's main paths at the benchmark's E. coli scale: the
+single-end library (FASTQ -> Aligner.create(..., device="cuda") ->
+align_to_sam_many -> SAM), the workflow users run (FASTQ -> AlignWorkflow
+on "cuda" -> sorted, duplicate-marked, gap-realigned BAM with .bai and
+.md5), single-end and paired-end, and checks every hand-written kernel on
+their path against its plain torch version.  Phases, one line each:
 
   1. the card (torch.cuda must be available) with its name and power limit;
   2. build the CUDA kernels from the repo's sources (nvcc, sm_90a);
@@ -32,13 +32,28 @@ against its plain torch version.  Phases, one line each:
   6. card vs CPU: the first 4,096 of phase 5's reads through the workflow
      on both devices give the same (qname, flag, pos, CIGAR, NM) (MAPQ:
      floor flips only), and one 2,048-read batch through the library gives
-     the same SAM core fields.
+     the same SAM core fields;
+  7. paired workflow: 262,144 pairs of 100 bp on the same genome
+     (synthetic.make_pairs: inserts from N(300, 50), both strands, 2% of
+     read 2s damaged so that only the shadow rescue places them, 0.5% far
+     mates), written as two FASTQs, through AlignWorkflow on "cuda" at
+     batch 32,768 and the workflow defaults (TLS learned from 4 batches);
+     checks the record count, coordinate order, .bai and .md5, each end's
+     aligned fraction and placement, proper pairs, the rescued mates, the
+     learned TLS and kernel launches; prints FASTQ->BAM reads/s, the stage
+     split, the Build phase and the rescue's device time at the shape the
+     run gave it;
+  8. paired card vs CPU: the first 4,096 pairs through the workflow on both
+     devices give the same TLS and (qname, flag, pos, CIGAR, NM, RNEXT,
+     PNEXT, TLEN) (MAPQ: floor flips only), and one 2,048-pair batch
+     through PairedAligner.align_to_sam the same.
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
-Then one JSON line of kernel results (launches: the workflow's run of
-phase 5), the card line, and the last line {"ok": true, "device": {...}}.
+Then one JSON line of kernel results (launches: the workflows' runs of
+phases 5 and 7), the card line, and the last line {"ok": true, "device":
+{...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
 
@@ -63,8 +78,9 @@ if __name__ != "__mp_main__":
     import torch
 
     from isaac_aligner_tpu_torch import synthetic
-    from isaac_aligner_tpu_torch.aligner import Aligner
-    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.align import pairs
+    from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner
+    from isaac_aligner_tpu_torch.index.build import SeedIndex, build_index
     from isaac_aligner_tpu_torch.io.bam import read_bam
     from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
     from isaac_aligner_tpu_torch.io.sam import write_sam
@@ -78,6 +94,9 @@ BATCH = 32_768
 N_BATCHES = 4
 WF_READS = 524_288          # the JAX benchmark's e2e_se size (bench.py:62)
 WF_SUBSET = 4_096
+PE_PAIRS = 262_144          # the JAX benchmark's e2e_pe size (bench.py:361)
+PE_SUBSET = 4_096
+PE_LIB = 2_048
 SW_PAIRS = 8_192
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
@@ -111,13 +130,19 @@ def card_line() -> str:
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call: `reps` calls queued behind a
     sleep kernel (so the host's enqueue time does not show), between two
-    CUDA events."""
+    CUDA events.  The sleep lasts at least ~0.1 s and three times the
+    host's enqueue time of `reps` calls, measured on one call first."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one_s = time.perf_counter() - t0
     slept = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     slept.record()
-    torch.cuda._sleep(200_000_000)         # ~0.1 s: the queue fills meanwhile
+    # the queue fills meanwhile (the SM clock runs at up to ~2 GHz)
+    torch.cuda._sleep(int(max(2e8, 3 * reps * one_s * 2e9)))
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -222,7 +247,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/6] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/8] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -231,12 +256,12 @@ def phase_kernel(rng, dev) -> None:
           f"plain {timing['plain_ms']:.2f} ms", flush=True)
 
 
-def write_fastq(path: Path, bases: np.ndarray) -> None:
+def write_fastq(path: Path, bases: np.ndarray, prefix: str = "r") -> None:
     letters = np.frombuffer(b"ACGTN", np.uint8)[bases]
     qual = "?" * bases.shape[1]                       # phred 30
     with open(path, "w") as f:
         for i, row in enumerate(letters):
-            f.write(f"@r{i}\n{row.tobytes().decode()}\n+\n{qual}\n")
+            f.write(f"@{prefix}{i}\n{row.tobytes().decode()}\n+\n{qual}\n")
 
 
 def phase_slice(args, dev, card: str, tmp: Path):
@@ -277,7 +302,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/6] slice: {genome.total_length} bp genome, "
+    print(f"[4/8] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -301,7 +326,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/6] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/8] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -311,13 +336,18 @@ def phase_slice(args, dev, card: str, tmp: Path):
 
 
 def run_workflow(index_dir: Path, fastq: Path, out: Path, device: str,
-                 batch: int) -> dict:
-    """AlignWorkflow at its defaults; returns the run's Stats JSON files."""
+                 batch: int, fastq2: Path | None = None) -> dict:
+    """AlignWorkflow at its defaults; returns the run's Stats JSON files
+    and its saved state (TLS, finder stats)."""
     AlignWorkflow(WorkflowOptions(
         reference=str(index_dir), output_dir=str(out), fastq1=str(fastq),
-        batch_size=batch, device=device)).run()
-    return {name: json.loads((out / "Stats" / f"{name}.json").read_text())
-            for name in ("MatchSelectorStats", "BuildStats")}
+        fastq2=str(fastq2) if fastq2 else None, batch_size=batch,
+        device=device)).run()
+    out_stats = {name: json.loads((out / "Stats" / f"{name}.json").read_text())
+                 for name in ("MatchSelectorStats", "BuildStats")}
+    out_stats["state"] = json.loads(
+        (out / "Temp" / "AlignerState.json").read_text())
+    return out_stats
 
 
 def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
@@ -356,7 +386,7 @@ def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
     placed_frac = float((mapped & (np.abs(gpos - sim.starts[idx]) <= 8)).mean())
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
     stages = ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
-    print(f"[5/6] workflow: {len(recs)} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+    print(f"[5/8] workflow: {len(recs)} reads, FASTQ->BAM {WF_READS / wall:.1f} "
           f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stages}; build_seconds {build['build_seconds']:.2f} s, "
           f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
@@ -426,10 +456,187 @@ def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
     flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
-    print(f"[6/6] card vs CPU: workflow on {WF_SUBSET} reads, "
+    print(f"[6/8] card vs CPU: workflow on {WF_SUBSET} reads, "
           f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
           f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
           flush=True)
+
+
+def phase_paired_workflow(args, genome, card: str, tmp: Path):
+    """Paired FASTQ -> sorted BAM through the port's workflow on the card
+    at the JAX benchmark's e2e_pe size; returns (kernel launches, the
+    simulated pairs, the learned TLS)."""
+    rng = np.random.default_rng(args.seed + 3)
+    t0 = time.perf_counter()
+    sp = synthetic.make_pairs(rng, genome.codes, PE_PAIRS)
+    for e, reads in ((1, sp.bases1), (2, sp.bases2)):
+        write_fastq(tmp / f"pe{e}.fq", reads, "t")
+        write_fastq(tmp / f"pe_sub{e}.fq", reads[:PE_SUBSET], "t")
+    setup_s = time.perf_counter() - t0
+
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx", tmp / "pe1.fq", tmp / "pe_wf", "cuda",
+                         BATCH, fastq2=tmp / "pe2.fq")
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+
+    out = tmp / "pe_wf" / "sorted.bam"
+    t0 = time.perf_counter()
+    _text, refs, recs = read_bam(out)
+    read_s = time.perf_counter() - t0
+    offsets = {c.name: c.offset for c in genome.contigs}
+    ref_index = {name: i for i, (name, _len) in enumerate(refs)}
+    n = PE_PAIRS
+    mapped = np.zeros((2, n), bool)
+    placed = np.zeros((2, n), bool)
+    proper = np.zeros(n, bool)
+    truth = (sp.start1, sp.start2)
+    for r in recs:
+        i = int(r.qname[1:])
+        e = 0 if r.flag & 0x40 else 1
+        if r.is_mapped:
+            mapped[e, i] = True
+            placed[e, i] = abs(offsets[r.rname] + r.pos - 1 - truth[e][i]) <= 8
+        proper[i] |= bool(r.flag & 0x2)
+    # an unmapped read with a mapped mate sits at its mate's coordinates
+    placed_at = np.array([r.rname != "*" for r in recs])
+    keys = [(ref_index[r.rname], r.pos) for r in recs if r.rname != "*"]
+    ordered = all(a <= b for a, b in zip(keys, keys[1:]))
+    first_unplaced = (int(np.argmin(placed_at)) if not placed_at.all()
+                      else len(recs))
+    ms, build, state = (stats["MatchSelectorStats"], stats["BuildStats"],
+                        stats["state"])
+    tls = pairs.TlsStatic(**state["tls"])
+    finder = state["stats"].get("match_finder", {})
+    work = ms["device_work"]
+    normal = ~sp.damaged & ~sp.far
+    proper_frac = float(proper[normal].mean())
+    rescued_frac = float(placed[1, sp.damaged].mean())
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
+
+    print(f"[7/8] paired workflow: {n} pairs, {len(recs)} records, FASTQ->BAM "
+          f"{2 * n / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
+          f"{ms['align_seconds']:.2f} s: {stages}; build_seconds "
+          f"{build['build_seconds']:.2f} s, {build['bins']} bin(s), "
+          f"duplicates {build['duplicates']}, realigned "
+          f"{build['realigned']}); learned {tls}; aligned "
+          f"{mapped[0].mean():.4f}/{mapped[1].mean():.4f}, within 8 bp "
+          f"{placed[0].mean():.4f}/{placed[1].mean():.4f} (read 1/read 2); "
+          f"proper {proper_frac:.4f} of {int(normal.sum())} undamaged near "
+          f"pairs, {int(proper[sp.far].sum())} of {int(sp.far.sum())} far; "
+          f"rescued {rescued_frac:.4f} of {int(sp.damaged.sum())} damaged "
+          f"mates; proper_pairs {ms['proper_pairs']}, anomalous_pairs "
+          f"{finder.get('anomalous_pairs')}, rescue_skipped "
+          f"{finder.get('rescue_skipped', 0)}; banded_sw launches {launches} "
+          f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
+          f"{work['rescue_calls']} calls; read_bam {read_s:.1f} s, setup "
+          f"{setup_s:.1f} s [{card}]", flush=True)
+    if len(recs) != 2 * n:
+        raise AssertionError(f"{len(recs)} BAM records for {n} pairs")
+    if not ordered or placed_at[first_unplaced:].any():
+        raise AssertionError("paired sorted.bam is not in coordinate order")
+    for ext in (".bai", ".md5"):
+        if not Path(str(out) + ext).is_file():
+            raise AssertionError(f"no paired sorted.bam{ext}")
+    for e in (0, 1):
+        if mapped[e].mean() < 0.95 or placed[e].mean() < 0.95:
+            raise AssertionError(f"read {e + 1}: aligned {mapped[e].mean()}, "
+                                 f"placed {placed[e].mean()} < 0.95")
+    if proper_frac < 0.90 or proper[sp.far].any():
+        raise AssertionError(f"proper pairs {proper_frac} of the near pairs, "
+                             f"{int(proper[sp.far].sum())} far")
+    if rescued_frac < 0.80:
+        raise AssertionError(f"rescued {rescued_frac} < 0.80 of the damaged "
+                             f"mates")
+    if {tls.best0, tls.best1} != {1, 6} or abs(tls.median - 300) > 15:
+        raise AssertionError(f"learned TLS {tls}")
+    if launches <= 0:
+        raise AssertionError("the paired workflow never launched banded_sw")
+
+    # the rescue alone at the shape the run gave it: the mean orphan rows
+    # per call and the learned window, device time queued behind a sleep
+    rows = max(1, round(work["rescue_rows"] / max(work["rescue_calls"], 1)))
+    window = pairs.quantize_rescue_window(tls.mate_max - tls.mate_min + 1,
+                                          4096)
+    al = PairedAligner.create(SeedIndex.load(tmp / "idx"), read_len=READ_LEN,
+                              device="cuda")
+    sel = np.resize(np.nonzero(sp.damaged)[0], rows)
+    args_r = [torch.from_numpy(x).to(al.device) for x in (
+        sp.start1[sel], sp.reverse1[sel], sp.bases2[sel],
+        np.full((rows, READ_LEN), 30, np.uint8))]
+
+    def rescue():
+        return pairs.rescue_shadows(al.arrays, al.cfg, tls, 0,
+                                    (READ_LEN, READ_LEN), *args_r, window)
+    found = float(rescue()["found"].float().mean())
+    # 5 calls: each enqueues ~140 kernels, and more than the device's
+    # launch queue holds behind the sleep would make the host wait
+    rescue_ms = cuda_ms(rescue, 5)
+    print(f"[7/8] rescue_shadows at the run's shape ({rows} rows x {window} "
+          f"offsets x {READ_LEN} bases, damaged mates, found {found:.3f}): "
+          f"{rescue_ms:.4f} ms a call, {work['rescue_calls']} calls in the "
+          f"run", flush=True)
+    # the kernel again at the shape the paired run gave it
+    n_pe = max(1, round(work["sw_pairs"] / launches))
+    timing = check_and_time(rng, al.device, n_pe, READ_LEN, sw.BWA_SCORES,
+                            True)
+    print(f"[7/8] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
+          f"{work['sw_pairs']} pairs in {launches} launches): kernel "
+          f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
+          f"{timing['plain_ms']:.2f} ms", flush=True)
+    return launches, sp, tls
+
+
+def pair_core(recs) -> dict:
+    """{(qname, read): ((flag, pos, CIGAR, NM, RNEXT, PNEXT, TLEN), MAPQ)}"""
+    return {(r.qname, r.flag & 0xC0): ((r.flag, r.pos, r.cigar,
+                                        r.tags.get("NM"), r.rnext, r.pnext,
+                                        r.tlen), r.mapq) for r in recs}
+
+
+def compare_pairs(what: str, gpu: dict, cpu: dict, n: int) -> int:
+    diff = [(k, gpu[k][0], cpu.get(k, (None,))[0]) for k in gpu
+            if gpu[k][0] != cpu.get(k, (None,))[0]]
+    if len(gpu) != 2 * n or gpu.keys() != cpu.keys() or diff:
+        raise AssertionError(f"{what} card vs CPU: core fields differ on "
+                             f"{len(diff)} records, e.g. {diff[:3]}")
+    return mapq_flips((gpu[k][1], cpu[k][1]) for k in gpu)
+
+
+def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp / f"pe_sub_{device}"
+        st = run_workflow(tmp / "idx", tmp / "pe_sub1.fq", out, device,
+                          PE_SUBSET, fastq2=tmp / "pe_sub2.fq")
+        runs[device] = (st["state"]["tls"],
+                        pair_core(read_bam(out / "sorted.bam")[2]))
+    if runs["cuda"][0] != runs["cpu"][0]:
+        raise AssertionError(f"learned TLS card {runs['cuda'][0]} vs CPU "
+                             f"{runs['cpu'][0]}")
+    wf_flips = compare_pairs("paired workflow", runs["cuda"][1],
+                             runs["cpu"][1], PE_SUBSET)
+
+    index = SeedIndex.load(tmp / "idx")
+    names = [f"t{i}" for i in range(PE_LIB)]
+
+    def batches():
+        return tuple(ReadBatch(names=names, bases=b[:PE_LIB].copy(),
+                               quals=np.full((PE_LIB, READ_LEN), 30, np.uint8),
+                               lengths=np.full(PE_LIB, READ_LEN, np.int32))
+                     for b in (sp.bases1, sp.bases2))
+    lib = {}
+    for device in ("cuda", "cpu"):
+        al = PairedAligner.create(index, read_len=READ_LEN, device=device)
+        al.tls = tls
+        lib[device] = pair_core(al.align_to_sam(*batches()))
+    flips = compare_pairs("paired library", lib["cuda"], lib["cpu"], PE_LIB)
+    print(f"[8/8] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
+          f"{runs['cuda'][0]} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
+          f"tlen equal, MAPQ floor flips {wf_flips}; library on {PE_LIB} "
+          f"pairs, equal, MAPQ floor flips {flips}", flush=True)
 
 
 def main() -> None:
@@ -442,22 +649,29 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/6] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/8] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/6] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/8] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         genome, index, batch0, al, timing = phase_slice(args, dev, card,
                                                         Path(d))
-        launches = phase_workflow(args, genome, index, card, Path(d))
+        se_launches = phase_workflow(args, genome, index, card, Path(d))
         phase_card_vs_cpu(Path(d), index, batch0, al)
+        pe_launches, sp, tls = phase_paired_workflow(args, genome, card,
+                                                     Path(d))
+        phase_paired_card_vs_cpu(Path(d), sp, tls)
+    launches = se_launches + pe_launches
+    print(f"banded_sw launches on the main paths: single-end workflow "
+          f"{se_launches} + paired workflow {pe_launches} = {launches}",
+          flush=True)
     jax_mods = sorted(m for m in sys.modules if m.startswith("jax")
                       or m.split(".")[0] == "isaac_aligner_tpu")
     if jax_mods:

@@ -1,15 +1,15 @@
-"""isaac_aligner_tpu_torch — the aligner's single-end path in PyTorch + CUDA.
+"""isaac_aligner_tpu_torch — the aligner's FASTQ paths in PyTorch + CUDA.
 
 A port of `isaac_aligner_tpu` (JAX/XLA + one Pallas kernel) to PyTorch on
 an NVIDIA Hopper GPU.  The JAX package stays the reference: every module
 here names its counterpart, and the tests hold each against it on the same
 inputs.
 
-- The slice is the workflow users run, single-end and single-device:
-  FASTQ -> `workflow.align.AlignWorkflow` (or `python -m
-  isaac_aligner_tpu_torch align`) -> sorted, duplicate-marked,
+- The slice is the workflow users run, single-device, single-end and
+  paired-end: FASTQ (pairs) -> `workflow.align.AlignWorkflow` (or `python
+  -m isaac_aligner_tpu_torch align`) -> sorted, duplicate-marked,
   gap-realigned BAM with .bai and .md5, byte-equal to the JAX workflow's.
-  Its library half is `aligner.Aligner`.
+  Its library halves are `aligner.Aligner` and `aligner.PairedAligner`.
 - Device code is plain torch ops on tensors, with one hand-written CUDA
   kernel: the banded Smith-Waterman of the gapped polish
   (`ops/csrc/banded_sw.cu`, built with nvcc on first use).
@@ -19,7 +19,7 @@ inputs.
   its plain torch version, which is what the CPU tests exercise.
 - The host modules are the port's own copies of the JAX package's, under
   the same module names and unchanged in behaviour (`dna`, `io.*`,
-  `index.build`, `align.clippers`, `build.*`, `workflow.{output_proc,
+  `index.build`, `align.{clippers,tls}`, `build.*`, `workflow.{output_proc,
   stats_agg,reports}`, `utils.*`, `native/*.cpp`).  This package imports
   neither jax nor anything of `isaac_aligner_tpu`, and this file imports
   no torch: the workflow's spawned output process imports only host

@@ -1,4 +1,4 @@
-"""The single-end device pipeline on torch tensors.
+"""The device pipeline on torch tensors (single-end, and each end of a pair).
 
 Port of `isaac_aligner_tpu/align/pipeline.py` (the JAX program that
 `_single_packed_jit` compiles into one XLA executable).  Here the same
@@ -14,10 +14,12 @@ becomes a cumsum + scatter compaction, `.at[].set(mode="drop")` a write to
 a scratch row, and every gather index is clamped in range.  uint32 words
 ride in int64 carriers so shifts are logical.
 
+The paired path (`align/pairs.py`) scores each end with `score_end`: the
+same stages up to the ungapped scorer, without the single-end pick.
+
 Not ported yet (they raise NotImplementedError rather than run a different
 path): 64-mer seeds and 64-mer indexes, neighbor (Hamming<=1) matching,
-and --scatter-repeats (ROADMAP queue A).  `score_candidates`/`score_end`
-serve only the paired path and come with it.  The result packing for the TPU
+and --scatter-repeats (ROADMAP queue A).  The result packing for the TPU
 link (`compact_cand_result`, `pack_device_result`) is left behind.
 """
 
@@ -314,6 +316,16 @@ def pack_reads(bases: torch.Tensor) -> torch.Tensor:
     shifts = 2 * (15 - torch.arange(16, dtype=torch.int64, device=bases.device))
     # lanes never overlap, so the sum is the bitwise or
     return (x.reshape(b, w, 16) << shifts).sum(dim=2)
+
+
+def sum_f32(terms: torch.Tensor) -> torch.Tensor:
+    """Sum float32 terms over the last axis in float64 and round once to
+    float32.  The card's and the CPU's reduction orders then give the same
+    float32 value, and alignments whose per-base terms are the same
+    multiset (two repeat copies with the same mismatch qualities) tie
+    exactly, so the first-index argmin picks the same candidate on every
+    device."""
+    return terms.to(torch.float64).sum(dim=-1).to(torch.float32)
 
 
 def _compact_indices(mask: torch.Tensor, size: int) -> torch.Tensor:
@@ -661,8 +673,9 @@ def _score_ungapped(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
     delta = torch.where(p_rc, delta_r[row], delta_f[row])
     lm = torch.where(p_rc, lm_r[row], lm_f[row])
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    p_log_prob = torch.where(in_contig, torch.where(is_match, lm, lm + delta),
-                             zero).sum(dim=-1)
+    p_log_prob = sum_f32(torch.where(in_contig,
+                                     torch.where(is_match, lm, lm + delta),
+                                     zero))
 
     # ---- scatter back to the [B, C] grid (slot n_flat = scratch)
     scatter_idx = torch.where(pvalid, pair_idx, n_flat)
@@ -740,6 +753,54 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
         "cand_valid": cand_valid,
         "cand_mismatches": mismatches,
     }
+
+
+def score_candidates(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
+                     cand_start, cand_orient, cand_valid, well_anchored,
+                     num_candidates, scored_overflow,
+                     pass2_dropped_mask=None, finder_stats=None) -> dict:
+    """Stage C on a gathered candidate grid -> the per-end dict of the pair
+    resolver: start, orient, valid, cid, log_prob, sw_score, edit, obs_len,
+    all [B, C]."""
+    b, read_len = bases.shape
+    log_prob, mismatches, edit_distance, dropped = _score_ungapped(
+        arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid)
+    # located by the middle base: edge-overhanging candidates belong to the
+    # contig that holds most of the read
+    cid = _contig_of(arrays, cand_start + read_len // 2)
+    dodgy = scored_overflow | dropped
+    if pass2_dropped_mask is not None:
+        dodgy = dodgy | pass2_dropped_mask
+    return {
+        "score_dropped": dropped,
+        # untrackable repeat mass (or a dropped pass-2 escalation): the
+        # pair resolver forces the dodgy score, as finalize_single_end does
+        "dodgy": dodgy,
+        "start": cand_start,
+        "orient": cand_orient,
+        "valid": cand_valid,
+        "well_anchored": well_anchored,
+        "cid": torch.where(cand_valid, cid, -1),
+        "log_prob": log_prob,
+        "sw_score": mismatches,          # ungapped SW score == mismatch count
+        "mismatches": mismatches,
+        "edit": edit_distance,
+        "obs_len": torch.full(cand_start.shape, read_len, dtype=torch.int32,
+                              device=bases.device),
+        "num_candidates": num_candidates,
+        "finder_stats": finder_stats or {},
+    }
+
+
+def score_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals) -> dict:
+    """Stages A+B+C for one read end: deduped, scored candidate lists."""
+    cand_start, cand_orient, cand_valid, well_anchored, diag = \
+        _gather_candidates(arrays, cfg, bases)
+    return score_candidates(
+        arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid,
+        well_anchored, diag["num_candidates"], diag["scored_overflow"],
+        pass2_dropped_mask=diag.get("pass2_dropped_mask"),
+        finder_stats=_finder_stats_from_diag(diag))
 
 
 def quality_trim_device(bases, quals, cutoff: int, tail_masked):

@@ -8,6 +8,8 @@ exp(-m)-scaled masses so float32 never underflows.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -37,7 +39,14 @@ LOG_MISMATCH_NP = LOG_MISMATCH_F64.astype(np.float32)
 
 
 def log_tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 (log match, log mismatch) tables on `device`."""
+    """float32 (log match, log mismatch) tables on `device`, uploaded once
+    per device: a copy from pageable host memory may wait for the device's
+    queue, which would stall every caller behind the device's work."""
+    return _tables_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.from_numpy(LOG_MATCH_NP).to(device),
             torch.from_numpy(LOG_MISMATCH_NP).to(device))
 

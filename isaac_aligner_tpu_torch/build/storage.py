@@ -9,10 +9,10 @@ FragmentCollector.hh.  Here each aligned batch converts to a
 appends to per-bin chunk files, so the whole-run record set never lives
 in RAM at once.
 
-The port's own copy of the single-end parts of
+The port's own copy of the single-end and paired-end parts of
 `isaac_aligner_tpu/build/storage.py`, unchanged.  Not ported yet:
-`from_paired_result` (paired-end, ROADMAP queue A item 3) and
-`from_sam_records` (BAM input); the workflow refuses both inputs.
+`from_sam_records` (BAM input, ROADMAP queue A item 9); the workflow
+refuses that input.
 """
 
 from __future__ import annotations
@@ -173,6 +173,152 @@ def from_single_result(genome, batch, res: dict, mapq_cap: int = 60,
     _apply_aux(fb, aux.take(idx) if aux is not None else None)
     finalize_dup_columns(fb, genome.contig_offsets)
     return fb
+
+
+def from_paired_result(genome, b1, b2, res: dict, mapq_cap: int = 60,
+                       aux: AuxColumns | None = None,
+                       pessimistic: bool = False,
+                       mapq_threshold: int = 0) -> FragmentBatch:
+    """Vectorized paired result -> FragmentBatch, rows interleaved
+    (R1_0, R2_0, R1_1, R2_1, ...).  Field mapping matches
+    aligner._pair_records (FragmentAccessorBamAdapter analog) exactly.
+    """
+    from ..align import tls as tls_mod
+    names = b1.names
+    # padding rows are always trailing (pad_batch)
+    idx = np.arange(b1.n_valid)
+    n = idx.size
+    offs = genome.contig_offsets
+
+    end = {}
+    for e, batch in ((1, b1), (2, b2)):
+        lengths = batch.lengths[idx].astype(np.int32)
+        aligned = np.asarray(res[f"aligned_{e}"])[idx].astype(bool)
+        rev = aligned & np.asarray(res[f"reverse_{e}"])[idx].astype(bool)
+        start = np.asarray(res[f"start_{e}"])[idx].astype(np.int64)
+        frag = np.where(aligned,
+                        np.asarray(res[f"frag_score_{e}"])[idx], 0).astype(np.int64)
+        nm = np.where(aligned,
+                      np.asarray(res[f"edit_distance_{e}"])[idx], 0).astype(np.int32)
+        ops, n_ops = R.cigars_to_ops(
+            _subset_cigars(res.get(f"cigar_{e}"), idx), lengths)
+        obs = R.ref_span(ops, n_ops.astype(np.int64)).astype(np.int64)
+        obs = np.where(aligned, obs, lengths)
+        rid, local = _locate(offs, np.maximum(start, 0))
+        seq, qual = _oriented_from_result(res, f"_{e}", batch, idx,
+                                          lengths, rev)
+        end[e] = dict(lengths=lengths, aligned=aligned, rev=rev, start=start,
+                      frag=frag, nm=nm, ops=ops,
+                      n_ops=np.where(aligned, n_ops, 0).astype(np.int16),
+                      obs=obs, rid=rid, local=local, seq=seq, qual=qual)
+
+    a1, a2 = end[1]["aligned"], end[2]["aligned"]
+    proper = np.asarray(res["proper_pair"])[idx].astype(bool) & a1 & a2
+    tscore = np.asarray(res["template_score"])[idx].astype(np.int64)
+    both = a1 & a2
+    same_ref = both & (end[1]["rid"] == end[2]["rid"])
+    tlen_mag = np.where(
+        same_ref,
+        tls_mod.template_length(end[1]["start"], end[1]["obs"],
+                                end[2]["start"], end[2]["obs"]), 0)
+
+    def end_mapq(e):
+        me = end[e]
+        base = np.minimum(me["frag"], mapq_cap)
+        # --bam-pessimistic-mapq: min(SM, AS) instead of max
+        combine = np.minimum if pessimistic else np.maximum
+        boosted = np.minimum(combine(me["frag"], tscore), mapq_cap)
+        return np.where(me["aligned"],
+                        np.where(proper & (tscore >= 0), boosted, base), 0)
+
+    mapq = {1: end_mapq(1), 2: end_mapq(2)}
+
+    if mapq_threshold > 0:
+        # reference --mapq-threshold: only TEMPLATES whose mapping
+        # quality clears the bar are reported (manual.md:421-424); both
+        # ends of a failing template become unaligned records
+        keep = np.maximum(mapq[1], mapq[2]) >= mapq_threshold
+        for e, batch in ((1, b1), (2, b2)):
+            # dropped reverse-aligned rows: re-emit FORWARD seq/qual so
+            # the cleared FLAG_REVERSE stays consistent with the bytes
+            fix = np.nonzero(end[e]["rev"] & ~keep)[0]
+            if fix.size:
+                w = end[e]["seq"].shape[1]
+                end[e]["seq"][fix] = batch.bases[idx][fix][:, :w]
+                end[e]["qual"][fix] = batch.quals[idx][fix][:, :w]
+            end[e]["aligned"] = end[e]["aligned"] & keep
+            end[e]["rev"] = end[e]["rev"] & keep
+            end[e]["n_ops"] = np.where(keep, end[e]["n_ops"], 0) \
+                .astype(np.int16)
+        a1, a2 = end[1]["aligned"], end[2]["aligned"]
+        proper = proper & keep
+        both = a1 & a2
+        same_ref = both & (end[1]["rid"] == end[2]["rid"])
+        tlen_mag = np.where(
+            same_ref,
+            tls_mod.template_length(end[1]["start"], end[1]["obs"],
+                                    end[2]["start"], end[2]["obs"]), 0)
+        tscore = np.where(keep, tscore, -1)
+        mapq = {e: np.where(keep, mapq[e], 0) for e in (1, 2)}
+
+    parts = []
+    for e in (1, 2):
+        me, mate = end[e], end[3 - e]
+        m_al, o_al = me["aligned"], mate["aligned"]
+        flag = np.full(n, sam.FLAG_PAIRED
+                       | (sam.FLAG_READ1 if e == 1 else sam.FLAG_READ2),
+                       np.uint16)
+        flag |= np.where(proper, sam.FLAG_PROPER_PAIR, 0).astype(np.uint16)
+        flag |= np.where(~m_al, sam.FLAG_UNMAPPED, 0).astype(np.uint16)
+        flag |= np.where(~o_al, sam.FLAG_MATE_UNMAPPED, 0).astype(np.uint16)
+        flag |= np.where(me["rev"], sam.FLAG_REVERSE, 0).astype(np.uint16)
+        flag |= np.where(mate["rev"], sam.FLAG_MATE_REVERSE, 0).astype(np.uint16)
+
+        # placement: unmapped rows sit at the mate's coordinates
+        ref_id = np.where(m_al, me["rid"], np.where(o_al, mate["rid"], -1))
+        pos = np.where(m_al, me["local"], np.where(o_al, mate["local"], -1))
+        mate_ref = np.where(o_al, mate["rid"], np.where(m_al, me["rid"], -1))
+        mate_pos = np.where(o_al, mate["local"], np.where(m_al, pos, -1))
+
+        lower = (me["start"] < mate["start"]) | \
+            ((me["start"] == mate["start"]) & (e == 1))
+        tlen = np.where(both & (tlen_mag != 0),
+                        np.where(lower, tlen_mag, -tlen_mag), 0)
+
+        fb = FragmentBatch.empty(n, me["seq"].shape[1], name_w=1,
+                                 max_cigar=max(end[1]["ops"].shape[1],
+                                               end[2]["ops"].shape[1]))
+        fb.name_bytes, fb.name_len = _name_matrix(names, idx)
+        fb.flag = flag
+        fb.ref_id = ref_id.astype(np.int32)
+        fb.pos = pos.astype(np.int32)
+        fb.mapq = np.minimum(mapq[e], 255).astype(np.uint8)
+        fb.cigar_ops[:, : me["ops"].shape[1]] = me["ops"]
+        fb.n_cigar = me["n_ops"]
+        fb.seq, fb.qual = me["seq"], me["qual"]
+        fb.length = me["lengths"]
+        fb.mate_ref_id = mate_ref.astype(np.int32)
+        fb.mate_pos = mate_pos.astype(np.int32)
+        fb.tlen = tlen.astype(np.int32)
+        fb.nm = np.where(m_al, me["nm"], _ABSENT).astype(np.int32)
+        fb.sm = np.where(m_al, me["frag"], _ABSENT).astype(np.int32)
+        fb.as_ = np.where(m_al & proper & (tscore >= 0), tscore,
+                          _ABSENT).astype(np.int32)
+        fb.mq = np.where(o_al, mapq[3 - e], _ABSENT).astype(np.int32)
+        fb.mc_ops[:, : mate["ops"].shape[1]] = mate["ops"]
+        fb.n_mc = np.where(o_al, mate["n_ops"], 0).astype(np.int16)
+        parts.append(fb)
+
+    # interleave rows: template i -> rows 2i (R1), 2i+1 (R2)
+    order = np.empty(2 * n, np.int64)
+    order[0::2] = np.arange(n)
+    order[1::2] = n + np.arange(n)
+    fb1, fb2 = parts
+    cat = R.concat([fb1, fb2])
+    out = cat.take(order)
+    _apply_aux(out, aux.take(idx) if aux is not None else None)
+    finalize_dup_columns(out, genome.contig_offsets)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,12 @@
 
 Port of the `align` subcommand of `isaac_aligner_tpu/cli.py` (reference
 bin/isaac-align, src/c++/bin/isaac-align.cpp:31-151) with the options the
-single-end FASTQ slice runs, plus `--device` (default "cuda"):
+FASTQ paths run (single-end, and paired-end with -2), plus `--device`
+(default "cuda"):
 
     python -m isaac_aligner_tpu_torch align -r index_dir|ref.fa \\
-        -1 r1.fastq -o out_dir [--device cuda|cpu] [--start-from State] ...
+        -1 r1.fastq [-2 r2.fastq] -o out_dir [--device cuda|cpu] \\
+        [--start-from State] ...
 
 The index directory comes from the JAX package's `sort-reference` (the
 same on-disk files); the port's own `sort-reference` waits for neighbor
@@ -25,6 +27,7 @@ def _cmd_align(args) -> int:
         reference=args.reference,
         output_dir=args.output_directory,
         fastq1=args.fastq1,
+        fastq2=args.fastq2,
         lanes=tuple(int(x) for x in args.lane.split(",")) if args.lane else None,
         seed_len=args.seed_length,
         batch_size=args.batch_size,
@@ -34,6 +37,7 @@ def _cmd_align(args) -> int:
         sample=args.sample,
         base_quality_cutoff=args.base_quality_cutoff,
         clip_semialigned=not args.no_clip_semialigned,
+        clip_overlapping=not args.no_clip_overlapping,
         adapters=tuple(args.adapter or ()),
         realign_gaps=args.realign_gaps,
         gap_scoring=args.gap_scoring,
@@ -41,6 +45,9 @@ def _cmd_align(args) -> int:
         repeat_threshold=args.repeat_threshold,
         first_pass_seeds=args.first_pass_seeds,
         dodgy_alignment_score=args.dodgy_alignment_score,
+        tls_override=args.tls,
+        mate_drift_range=args.mate_drift_range,
+        pessimistic_mapq=args.bam_pessimistic_mapq,
         bam_exclude_tags=args.bam_exclude_tags,
         records_per_bin=args.records_per_bin,
         memory_limit=args.memory_limit,
@@ -48,6 +55,7 @@ def _cmd_align(args) -> int:
         mapq_threshold=args.mapq_threshold,
         gapped_mismatches=args.gapped_mismatches,
         semialigned_gap_limit=args.semialigned_gap_limit,
+        shadow_scan_range=args.shadow_scan_range,
         realigned_gaps_per_fragment=args.realigned_gaps_per_fragment,
         qscore_bin=bool(args.qscore_bin),
         variable_read_length=args.variable_fastq_read_length,
@@ -101,8 +109,10 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("-r", "--reference", required=True,
                     help="FASTA file or saved index directory")
     al.add_argument("-1", "--fastq1", default=None,
-                    help="single-end FASTQ, or a directory of "
-                         "lane<N>_read1.fastq[.gz] files")
+                    help="read-1 FASTQ, or a directory of "
+                         "lane<N>_read<1|2>.fastq[.gz] files")
+    al.add_argument("-2", "--fastq2", default=None,
+                    help="read-2 FASTQ of a paired-end run")
     al.add_argument("--lane", default=None,
                     help="comma-separated lane subset of a --fastq1 "
                          "directory")
@@ -121,6 +131,7 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("--base-quality-cutoff", type=int, default=25,
                     help="3' quality trim cutoff (0 disables)")
     al.add_argument("--no-clip-semialigned", action="store_true")
+    al.add_argument("--no-clip-overlapping", action="store_true")
     al.add_argument("--adapter", action="append", default=None,
                     help="adapter sequence to clip (repeatable)")
     al.add_argument("--seeds", default="auto",
@@ -133,6 +144,15 @@ def main(argv: list[str] | None = None) -> int:
                     help="Unaligned | 0-254 MAPQ for untrackable repeats")
     al.add_argument("--gap-scoring", default="bwa",
                     help="bwa | eland | m:mm:go:ge[:me] colon string")
+    al.add_argument("--tls", default=None,
+                    help="force template-length stats: "
+                         "min:median:max:lowStdDev:highStdDev:M0:M1")
+    al.add_argument("--mate-drift-range", type=int, default=-1,
+                    help="rescue window = TLS median +- this (default -1: "
+                         "use the min..max template range)")
+    al.add_argument("--bam-pessimistic-mapq", action="store_true",
+                    help="MAPQ := min(60, min(SM, AS)) for proper pairs "
+                         "(manual.md:279)")
     al.add_argument("--bam-exclude-tags", default="ZX,ZY",
                     help="comma list of tags to drop from output BAMs "
                          "(all,none,AS,BC,NM,OC,RG,SM,ZX,ZY; manual.md:274)")
@@ -159,6 +179,9 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("--semialigned-gap-limit", type=int, default=100,
                     help="max long-indel length for the simple-indel "
                          "aligner; 0 disables (manual.md:520-523)")
+    al.add_argument("--shadow-scan-range", type=int, default=-1,
+                    help="-1: rescue over template min..max; >=0: "
+                         "median +- range (manual.md:524-527)")
     al.add_argument("--realigned-gaps-per-fragment", type=int, default=4,
                     help="max known gaps combined per realignment choice")
     al.add_argument("--qscore-bin", type=int, default=0, choices=(0, 1),

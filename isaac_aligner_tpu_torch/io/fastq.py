@@ -1,9 +1,8 @@
 """FASTQ reading into fixed-shape read batches.
 
 The port's own copy of `isaac_aligner_tpu/io/fastq.py`, unchanged apart
-from `iter_fastq_batches`, which streams single-end FASTQ only: a second
-read file (paired-end, ROADMAP queue A item 3) and a barcode FASTQ
-(demultiplexing, queue A item 10) are not ported.  Reference analog:
+from `iter_fastq_batches`, which refuses a barcode FASTQ (demultiplexing,
+ROADMAP queue A item 10).  Reference analog:
 src/c++/include/io/FastqReader.hh and the FastqSeedSource tile synthesis
 (src/c++/include/workflow/alignWorkflow/FastqDataSource.hh).  The pipeline
 wants rectangular [batch, read_len] uint8 arrays; reads shorter than
@@ -398,34 +397,51 @@ class _ColumnarFastqStream:
 
 
 def iter_fastq_batches(path1: str | Path, path2: str | Path | None,
-                       batch_size: int, phred_offset: int = 33):
-    """Stream padded single-end ReadBatch tuples from a FASTQ file.
+                       batch_size: int, phred_offset: int = 33,
+                       barcode_path: str | Path | None = None):
+    """Stream synchronized, padded ReadBatch tuples from FASTQ file(s).
 
     The out-of-core analog of the reference's FastqSeedSource tile
-    synthesis (FastqDataSource.hh:41-118): yields (b1, None, None) with
-    every batch padded to `batch_size`, holding only one batch in RAM at
-    a time.
+    synthesis (FastqDataSource.hh:41-118): yields (b1, b2 | None, None)
+    with every batch padded to `batch_size` and each stream at its own
+    stable read width, holding only one batch in RAM at a time.  Read-1
+    and read-2 files of different read counts raise ValueError.  A barcode
+    FASTQ (demultiplexing) is not ported (ROADMAP queue A item 10).
     """
-    if path2 is not None:
+    if barcode_path is not None:
         raise NotImplementedError(
-            "paired-end FASTQ input is not ported yet (ROADMAP queue A "
-            "item 3)")
+            "barcode FASTQ input is not ported yet (ROADMAP queue A item 10)")
     st1 = _ColumnarFastqStream(path1, phred_offset)
-    width = None                  # stable read_len of the stream
+    st2 = _ColumnarFastqStream(path2, phred_offset) if path2 else None
+    widths = [None, None]         # stable per-stream read_len
+
+    def _mk(parsed, slot: int) -> ReadBatch:
+        names, bases, quals, lengths = parsed
+        b = ReadBatch(names=names, bases=bases, quals=quals, lengths=lengths)
+        if widths[slot] is None:
+            widths[slot] = b.read_len
+        return pad_batch(_widen(b, widths[slot]), batch_size)
 
     try:
         while True:
             chunk1 = st1.next_batch(batch_size)
             if chunk1 is None:
+                if st2 is not None and st2.next_batch(1) is not None:
+                    raise ValueError("fastq1/fastq2 read counts differ")
                 return
-            names, bases, quals, lengths = chunk1
-            b1 = ReadBatch(names=names, bases=bases, quals=quals,
-                           lengths=lengths)
-            if width is None:
-                width = b1.read_len
-            yield pad_batch(_widen(b1, width), batch_size), None, None
+            n1 = len(chunk1[0])
+            b1 = _mk(chunk1, 0)
+            b2 = None
+            if st2 is not None:
+                chunk2 = st2.next_batch(n1)
+                if chunk2 is None or len(chunk2[0]) != n1:
+                    raise ValueError("fastq1/fastq2 read counts differ")
+                b2 = _mk(chunk2, 1)
+            yield b1, b2, None
     finally:
-        st1.close()
+        for st in (st1, st2):
+            if st is not None:
+                st.close()
 
 
 def _widen(batch: ReadBatch, read_len: int) -> ReadBatch:

@@ -1,7 +1,7 @@
-"""The checkpointed single-end alignment workflow, FASTQ to sorted BAM.
+"""The checkpointed alignment workflow, FASTQ to sorted BAM.
 
-Port of the single-end, single-device, FASTQ-input path of
-`isaac_aligner_tpu/workflow/align.py` (reference workflow::AlignWorkflow,
+Port of the single-device, FASTQ-input paths (single-end and paired-end)
+of `isaac_aligner_tpu/workflow/align.py` (reference workflow::AlignWorkflow,
 src/c++/include/workflow/AlignWorkflow.hh:64-292): a phase state machine
 whose state serializes to Temp/AlignerState.json after every completed
 phase, with --start-from / --stop-at rewind semantics.  `STATES` and the
@@ -10,7 +10,8 @@ bins/boundaries.json) are the JAX package's, so a run can be resumed, and
 the BAM, its .bai and its .md5 are byte-equal to the JAX workflow's on the
 same inputs.
 
-    Start -> TlsDone      nothing to learn for single-end reads
+    Start -> TlsDone      pairs: template-length statistics learned from
+                          the first batches (or --tls), saved with the state
           -> AlignDone    align all batches on `device`; columnar records
                           stream to genomic bins (output process)
           -> ReportsDone  stats JSON/XML + HTML report
@@ -32,8 +33,9 @@ from pathlib import Path
 
 import numpy as np
 
+from ..align.pairs import TlsStatic
 from ..align.pipeline import AlignConfig, default_seed_offsets
-from ..aligner import Aligner
+from ..aligner import Aligner, PairedAligner
 from ..build.storage import DistributionBinStore
 from ..device import require_device
 from ..index.build import SeedIndex, build_index
@@ -43,20 +45,35 @@ from ..io.fasta import read_fasta
 STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
 
 
+def parse_tls_override(spec: str) -> TlsStatic:
+    """--tls 'min:median:max:lowStdDev:highStdDev:M0:M1' (manual.md:572-575)
+    -> the static TLS model (mate window = [min, max], reference
+    --mate-drift-range -1 default)."""
+    parts = spec.split(":")
+    if len(parts) != 7:
+        raise ValueError(
+            f"--tls {spec!r}: want min:median:max:lowStdDev:highStdDev:M0:M1")
+    mn, median, mx, _lo_sd, _hi_sd, m0, m1 = (int(x) for x in parts)
+    if not (0 <= m0 <= 7 and 0 <= m1 <= 7):
+        raise ValueError(f"--tls {spec!r}: models must be 0..7 (FFp..RRm)")
+    return TlsStatic(min=mn, max=mx, mate_min=mn, mate_max=mx,
+                     best0=m0, best1=m1, median=median)
+
+
 @dataclasses.dataclass
 class WorkflowOptions:
     """The JAX workflow's options, field for field, plus `device`.
 
-    The single-end FASTQ path honours every option that acts on it.  The
-    options of inputs and modes this slice does not run are kept so that
-    both packages take the same keywords: the ones that select such a path
-    raise (`check_ported`), the ones that only tune one have no effect
-    here, as in the JAX workflow's single-end FASTQ run."""
+    The FASTQ paths (single-end and paired-end) honour every option that
+    acts on them.  The options of inputs and modes the port does not run
+    are kept so that both packages take the same keywords: the ones that
+    select such a path raise (`check_ported`), the ones that only tune one
+    have no effect here, as in the JAX workflow's FASTQ runs."""
 
     reference: str                      # FASTA path or saved index directory
     output_dir: str
     fastq1: str | None = None
-    fastq2: str | None = None           # paired-end: not ported
+    fastq2: str | None = None           # paired-end when set
     bam_input: str | None = None        # BAM input: not ported
     run_folder: str | None = None       # BCL run folder: not ported
     lanes: tuple[int, ...] | None = None    # lane subset of a FASTQ lane dir
@@ -70,7 +87,7 @@ class WorkflowOptions:
     batch_size: int = 4096
     # reference --neighborhood-size-threshold (0 = off)
     neighborhood_size_threshold: int = 0
-    tls_batches: int = 4                # paired only
+    tls_batches: int = 4                # paired: batches TLS learns from
     keep_duplicates: bool = True        # mark, don't remove (reference default)
     mark_duplicates: bool = True
     gapped: bool = True                 # read by neither package
@@ -113,7 +130,7 @@ class WorkflowOptions:
     bam_header_tags: tuple[str, ...] = ()
     input_parallel_load: int = 2
     output_parallel_save: int = 2
-    per_tile_tls: bool = False          # BCL paired-end only
+    per_tile_tls: bool = False          # BCL paired-end only (no effect on FASTQ)
     ignore_neighbors: bool = False
     ignore_repeats: bool = False
     scatter_repeats: bool = False
@@ -173,11 +190,10 @@ class WorkflowOptions:
 
 
 #: (option, what it asks for, ROADMAP queue A item) for every option that
-#: selects a path this slice does not run; the options that act only on
-#: those paths (the BCL, paired-end and barcode ones) have no effect on a
-#: single-end FASTQ run in the JAX workflow either
+#: selects a path the port does not run; the options that act only on
+#: those paths (the BCL and barcode ones) have no effect on a FASTQ run in
+#: the JAX workflow either
 _NOT_PORTED = (
-    ("fastq2", "paired-end input", 3),
     ("run_folder", "BCL run-folder input", 8),
     ("bam_input", "BAM input", 9),
     ("sample_sheet", "demultiplexing (sample sheets, per-barcode runs)", 10),
@@ -213,6 +229,7 @@ class AlignWorkflow:
         for d in (self.out, self.temp, self.stats_dir):
             d.mkdir(parents=True, exist_ok=True)
         self.state = "Start"
+        self.tls: TlsStatic | None = None
         self._index: SeedIndex | None = None
         self._stats: dict = {}
         self._bin_cache = None
@@ -225,6 +242,8 @@ class AlignWorkflow:
 
     def save_state(self) -> None:
         doc = {"state": self.state, "stats": self._stats}
+        if self.tls is not None:
+            doc["tls"] = dataclasses.asdict(self.tls)
         self.state_file.write_text(json.dumps(doc, indent=2))
 
     def load_state(self) -> None:
@@ -232,6 +251,8 @@ class AlignWorkflow:
             doc = json.loads(self.state_file.read_text())
             self.state = doc["state"]
             self._stats = doc.get("stats", {})
+            if "tls" in doc:
+                self.tls = TlsStatic(**doc["tls"])
 
     def rewind(self, start_from: str) -> None:
         """Reference AlignWorkflow::rewind — drop back to an earlier state."""
@@ -241,6 +262,15 @@ class AlignWorkflow:
             self.state = start_from
 
     # -- shared resources ---------------------------------------------------
+
+    def _apply_mate_drift(self) -> None:
+        """--mate-drift-range: rescue window = median +- range
+        (reference TemplateLengthStatistics setMin/setMax)."""
+        d = self.opts.mate_drift_range
+        if d >= 0 and self.tls is not None:
+            self.tls = dataclasses.replace(
+                self.tls, mate_min=self.tls.median - d,
+                mate_max=self.tls.median + d)
 
     def _load_index(self) -> SeedIndex:
         """The saved index directory, or an index built from the FASTA."""
@@ -263,11 +293,45 @@ class AlignWorkflow:
     def _genome(self):
         return self._load_index().genome
 
+    @property
+    def _paired(self) -> bool:
+        if self.opts.fastq1 and Path(self.opts.fastq1).is_dir():
+            files = self._fastq_lane_files()
+            return bool(files) and files[0][1] is not None
+        return bool(self.opts.fastq2)
+
     # -- phases -------------------------------------------------------------
 
     def _phase_tls(self) -> None:
-        """Template-length statistics exist for pairs only; a single-end
-        run has nothing to learn."""
+        """Template-length statistics of a paired run: --tls, or learned
+        from the first `tls_batches` batches of the input stream (the raw
+        batches, before any masking); a single-end run has none."""
+        import itertools
+        if not self._paired:
+            self.tls = None
+            return
+        if self.opts.tls_override:
+            self.tls = parse_tls_override(self.opts.tls_override)
+            self._apply_mate_drift()
+            self._stats["tls"] = dataclasses.asdict(self.tls)
+            return
+        learn = [(b1, b2) for b1, b2, _ in
+                 itertools.islice(self._batch_stream(),
+                                  self.opts.tls_batches)]
+        if not learn:
+            # empty input: the align phase handles it; default model
+            self.tls = None
+            return
+        # learning runs score_end only: the clip and polish options of the
+        # align phase do not enter it
+        index = self._load_index()
+        read_len = learn[0][0].read_len
+        aligner = PairedAligner.create(
+            index, read_len=read_len, cfg=self._align_config(read_len, index),
+            device=self.opts.device)
+        self.tls = aligner.learn_tls(learn)
+        self._apply_mate_drift()
+        self._stats["tls"] = dataclasses.asdict(self.tls)
 
     def _align_config(self, read_len: int, index: SeedIndex) -> AlignConfig:
         o = self.opts
@@ -340,26 +404,38 @@ class AlignWorkflow:
         stream = itertools.chain([first], stream)
         read_len = first[0].read_len
         genome = self._genome()
-        aligner = Aligner.create(
-            index, read_len=read_len, cfg=self._align_config(read_len, index),
-            device=o.device,
-            base_quality_cutoff=o.base_quality_cutoff,
-            clip_semialigned=o.clip_semialigned,
-            adapters=tuple(o.adapters),
-            gap_scoring=GapScoring.parse(o.gap_scoring),
-            gapped_mismatches=o.gapped_mismatches,
-            semialigned_gap_limit=o.semialigned_gap_limit,
-            avoid_smith_waterman=o.avoid_smith_waterman)
+        paired = self._paired
+        ends = 2 if paired else 1
+        common = dict(read_len=read_len,
+                      cfg=self._align_config(read_len, index),
+                      device=o.device,
+                      base_quality_cutoff=o.base_quality_cutoff,
+                      clip_semialigned=o.clip_semialigned,
+                      adapters=tuple(o.adapters),
+                      gap_scoring=GapScoring.parse(o.gap_scoring),
+                      gapped_mismatches=o.gapped_mismatches,
+                      semialigned_gap_limit=o.semialigned_gap_limit,
+                      avoid_smith_waterman=o.avoid_smith_waterman)
+        if paired:
+            aligner = PairedAligner.create(
+                index, clip_overlapping=o.clip_overlapping,
+                pessimistic_mapq=o.pessimistic_mapq,
+                shadow_scan_range=o.shadow_scan_range, **common)
+            if self.tls is not None:
+                aligner.tls = self.tls
+        else:
+            aligner = Aligner.create(index, **common)
 
         records_per_bin = self._records_per_bin(read_len)
         self._stats["records_per_bin"] = records_per_bin
-        n_bins = max(1, -(-self._estimate_total_reads() // records_per_bin))
+        n_bins = max(1, -(-self._estimate_total_reads() * ends
+                          // records_per_bin))
         bins_dir = self.temp / "bins"
         if bins_dir.exists():
             shutil.rmtree(bins_dir)
         store = DistributionBinStore(
             bins_dir, genome.contig_offsets, genome.total_length, n_bins,
-            sample_cap=max(records_per_bin, 4 * o.batch_size),
+            sample_cap=max(records_per_bin, 4 * o.batch_size * ends),
             ram_cache_records=records_per_bin if o.buffer_bins else 0,
             pre_sort=o.pre_sort_bins, uniform=o.uniform_bins)
         # the Build phase reuses the RAM chunk cache when it runs in this
@@ -384,17 +460,24 @@ class AlignWorkflow:
                 gidx += 1
                 if nxt is None:
                     return
-                b1 = nxt[0]
+                b1, b2, _bc = nxt
                 # names stay columnar/lazy; conversion needs the count
                 sidecar.append((b1.names, b1.n_valid, gidx))
-                yield b1
+                yield (b1, b2) if paired else b1
 
-        def convert_emit(batch, res):
+        def convert_emit(inputs, res):
             t1 = time.perf_counter()
             _names, _n_valid, gidx = sidecar.popleft()
-            fb = fstore.from_single_result(
-                genome, batch, res, mapq_cap=aligner.cfg.mapq_cap,
-                mapq_threshold=o.mapq_threshold)
+            if paired:
+                fb = fstore.from_paired_result(
+                    genome, inputs[0], inputs[1], res,
+                    mapq_cap=aligner.cfg.mapq_cap,
+                    pessimistic=o.pessimistic_mapq,
+                    mapq_threshold=o.mapq_threshold)
+            else:
+                fb = fstore.from_single_result(
+                    genome, inputs, res, mapq_cap=aligner.cfg.mapq_cap,
+                    mapq_threshold=o.mapq_threshold)
             mapped = (fb.flag & sam.FLAG_UNMAPPED) == 0
             stats["total_reads"] += len(fb)
             stats["aligned"] += int(mapped.sum())
@@ -402,6 +485,9 @@ class AlignWorkflow:
                 stats["mapq_hist"] += np.bincount(
                     np.minimum(fb.mapq[mapped], 60), minlength=61)
                 stats["perfect"] += int((mapped & (fb.nm == 0)).sum())
+            stats["proper_pairs"] += int(
+                (((fb.flag & sam.FLAG_PROPER_PAIR) != 0)
+                 & ((fb.flag & sam.FLAG_READ1) != 0)).sum())
             # FASTQ inputs: one synthesized tile per batch, as the
             # reference's FastqDataSource.hh:41-118 does
             tile_agg(None, fb, mapped, per_tile, (),
@@ -417,24 +503,28 @@ class AlignWorkflow:
                 genome_bp=genome.total_length, n_bins=n_bins,
                 sample_cap=store.sample_cap, pre_sort=o.pre_sort_bins,
                 uniform=bool(o.uniform_bins),
-                mapq_cap=aligner.cfg.mapq_cap,
+                mapq_cap=aligner.cfg.mapq_cap, paired=paired,
+                pessimistic=o.pessimistic_mapq,
                 mapq_threshold=o.mapq_threshold))
 
-            def submit_proc(batch, res):
+            def submit_proc(inputs, res):
                 t1 = time.perf_counter()
                 names, n_valid, gidx = sidecar.popleft()
                 if not isinstance(names, LazyNames):
                     names = LazyNames.from_list(list(names))
+                b1 = inputs[0] if paired else inputs
+                b2 = inputs[1] if paired else None
                 res2 = {k: v for k, v in res.items()
                         if not k.startswith("cand_")}
                 proc.submit((gidx, n_valid, names.mat, names.lens,
-                             (batch.bases, batch.quals, batch.lengths),
-                             res2))
+                             (b1.bases, b1.quals, b1.lengths),
+                             (b2.bases, b2.quals, b2.lengths)
+                             if b2 is not None else None, res2))
                 t_host["convert"] += time.perf_counter() - t1
 
             try:
-                for batch, res in aligner.align_results_many(batches):
-                    submit_proc(batch, res)
+                for inputs, res in aligner.align_results_many(batches):
+                    submit_proc(inputs, res)
             finally:
                 out = proc.close()
             for k in ("total_reads", "aligned", "perfect", "proper_pairs"):
@@ -453,8 +543,8 @@ class AlignWorkflow:
                                   window=max(1, o.output_parallel_save),
                                   name="isaac-convert")
             try:
-                for batch, res in aligner.align_results_many(batches):
-                    writer.submit(batch, res)
+                for inputs, res in aligner.align_results_many(batches):
+                    writer.submit(inputs, res)
             finally:
                 writer.close()
             store.finalize()
@@ -467,6 +557,11 @@ class AlignWorkflow:
         stats["align_seconds"] = round(time.time() - t0, 2)
         t_host.update(aligner.timings)
         stats["stage_seconds"] = {k: round(v, 2) for k, v in t_host.items()}
+        # device work of the host-driven passes: pairs sent to the banded
+        # SW kernel, and (pairs) orphan rows scanned by the rescue
+        stats["device_work"] = {k: getattr(aligner, k) for k in
+                                ("sw_pairs", "rescue_rows", "rescue_calls")
+                                if hasattr(aligner, k)}
         stats["mapq_hist"] = [int(x) for x in stats["mapq_hist"]]
         for k in ("total_reads", "aligned", "perfect", "proper_pairs"):
             stats[k] = int(stats[k])
@@ -513,31 +608,25 @@ class AlignWorkflow:
                     f"--base-calls-format {fmt}: {o.fastq1} is "
                     f"{'gzipped' if is_gz else 'plain'} FASTQ")
 
-    def _fastq_files(self) -> list[str]:
+    def _fastq_lane_files(self) -> "list[tuple[str, str | None]]":
         """--fastq1 as a base-calls DIRECTORY: discover
-        lane<N>_read1.fastq[.gz] files for lanes 1..--lane-number-max
+        lane<N>_read<R>.fastq[.gz] pairs for lanes 1..--lane-number-max
         (reference FastqLayout.cpp:45-66 naming + --lane-number-max,
-        manual.md:419); a lane with a read-2 file is paired-end and
-        raises.  A plain file path returns itself."""
+        manual.md:419).  A plain file path returns (fastq1, fastq2)."""
         o = self.opts
         if not o.fastq1:
-            raise ValueError("need --fastq1 (the only input this slice "
-                             "reads)")
+            raise ValueError("need --fastq1 (the only input the port reads)")
         p = Path(o.fastq1)
         if not p.is_dir():
-            return [o.fastq1]
-        out: list[str] = []
+            return [(o.fastq1, o.fastq2)]
+        out: list[tuple[str, str | None]] = []
         want = list(o.lanes) if o.lanes else range(1, o.lane_number_max + 1)
         for lane in want:
             for ext in (".fastq", ".fastq.gz"):
                 r1 = p / f"lane{lane}_read1{ext}"
                 if r1.exists():
-                    if (p / f"lane{lane}_read2{ext}").exists():
-                        raise NotImplementedError(
-                            f"{p}: lane {lane} has a read-2 file; paired-end "
-                            f"input is not ported to isaac_aligner_tpu_torch "
-                            f"yet (ROADMAP queue A item 3)")
-                    out.append(str(r1))
+                    r2 = p / f"lane{lane}_read2{ext}"
+                    out.append((str(r1), str(r2) if r2.exists() else None))
                     break
         if not out and not o.allow_empty_flowcells:
             raise ValueError(
@@ -546,32 +635,36 @@ class AlignWorkflow:
         return out
 
     def _estimate_total_reads(self) -> int:
-        """File-size read-count estimate of the streamed FASTQ (only bin
-        granularity depends on it)."""
+        """File-size read-count estimate of the streamed read-1 FASTQ
+        (only bin granularity depends on it)."""
         from ..io.fastq import estimate_fastq_reads
-        return sum(estimate_fastq_reads(r1) for r1 in self._fastq_files())
+        return sum(estimate_fastq_reads(r1)
+                   for r1, _ in self._fastq_lane_files())
 
     def _batch_stream(self):
-        """Yield (b1, None, None) padded batches with input-side
-        postprocessing: --qscore-bin quality remapping and the
-        --variable-fastq-read-length uniformity check.  FASTQ streams
+        """Yield (b1, b2 | None, None) padded batches with input-side
+        postprocessing on both ends: --qscore-bin quality remapping and
+        the --variable-fastq-read-length uniformity check.  FASTQ streams
         record block by record block (bounded RAM)."""
         from ..io.fastq import iter_fastq_batches
         o = self.opts
         qtab = o.qscore_table()
-        for r1 in self._fastq_files():
-            for b1, b2, bc in iter_fastq_batches(r1, None, o.batch_size):
-                if not o.variable_read_length:
-                    ln = b1.lengths[: b1.n_valid]
-                    if ln.size and int(ln.min()) != int(ln.max()):
-                        raise ValueError(
-                            f"variable read lengths ({int(ln.min())}.."
-                            f"{int(ln.max())}) in the input; pass "
-                            f"--variable-fastq-read-length to accept "
-                            f"(shorter reads pad with N)")
-                if qtab is not None:
-                    np.minimum(b1.quals, 63, out=b1.quals)
-                    b1.quals[:] = qtab[b1.quals]
+        for r1, r2 in self._fastq_lane_files():
+            for b1, b2, bc in iter_fastq_batches(r1, r2, o.batch_size):
+                for b in (b1, b2):
+                    if b is None:
+                        continue
+                    if not o.variable_read_length:
+                        ln = b.lengths[: b.n_valid]
+                        if ln.size and int(ln.min()) != int(ln.max()):
+                            raise ValueError(
+                                f"variable read lengths ({int(ln.min())}.."
+                                f"{int(ln.max())}) in the input; pass "
+                                f"--variable-fastq-read-length to accept "
+                                f"(shorter reads pad with N)")
+                    if qtab is not None:
+                        np.minimum(b.quals, 63, out=b.quals)
+                        b.quals[:] = qtab[b.quals]
                 yield b1, b2, bc
 
     def _records_per_bin(self, read_len: int) -> int:

@@ -1,9 +1,8 @@
 """Output subprocess: record conversion + binning in a separate PROCESS.
 
-The port's own copy of the single-end half of
-`isaac_aligner_tpu/workflow/output_proc.py`, unchanged in behaviour; the
-paired-end setup (ROADMAP queue A item 3) and barcode resolution
-(demultiplexing, queue A item 10) are not ported.
+The port's own copy of `isaac_aligner_tpu/workflow/output_proc.py`
+(single-end and paired-end records), unchanged in behaviour; barcode
+resolution (demultiplexing, ROADMAP queue A item 10) is not ported.
 
 The convert/bin stage and the main thread's dispatch/fetch/polish would
 otherwise share one interpreter lock.  The reference solves the same
@@ -60,7 +59,9 @@ def _child_main(setup: dict, q, rq) -> None:
             ram_cache_records=0, pre_sort=setup["pre_sort"],
             uniform=setup["uniform"])
 
-        class G:                      # from_single_result needs only these
+        paired = setup.get("paired", False)
+
+        class G:                      # from_*_result needs only these
             contig_offsets = offsets
             total_length = setup["genome_bp"]
 
@@ -72,12 +73,19 @@ def _child_main(setup: dict, q, rq) -> None:
             item = q.get()
             if item is None:
                 break
-            gidx, n_valid, names_mat, names_len, b1c, res = item
+            gidx, n_valid, names_mat, names_len, b1c, b2c, res = item
             nm = LazyNames(names_mat, names_len, n_valid)
             b1 = ReadBatch(nm, *b1c)
-            fb = fstore.from_single_result(
-                G, b1, res, mapq_cap=setup["mapq_cap"],
-                mapq_threshold=setup["mapq_threshold"])
+            if paired:
+                fb = fstore.from_paired_result(
+                    G, b1, ReadBatch(nm, *b2c), res,
+                    mapq_cap=setup["mapq_cap"],
+                    pessimistic=setup["pessimistic"],
+                    mapq_threshold=setup["mapq_threshold"])
+            else:
+                fb = fstore.from_single_result(
+                    G, b1, res, mapq_cap=setup["mapq_cap"],
+                    mapq_threshold=setup["mapq_threshold"])
             mapped = (fb.flag & sam.FLAG_UNMAPPED) == 0
             stats["total_reads"] += len(fb)
             stats["aligned"] += int(mapped.sum())
@@ -85,6 +93,9 @@ def _child_main(setup: dict, q, rq) -> None:
                 stats["mapq_hist"] += np.bincount(
                     np.minimum(fb.mapq[mapped], 60), minlength=61)
                 stats["perfect"] += int((mapped & (fb.nm == 0)).sum())
+            stats["proper_pairs"] += int(
+                (((fb.flag & sam.FLAG_PROPER_PAIR) != 0)
+                 & ((fb.flag & sam.FLAG_READ1) != 0)).sum())
             stats_agg.tile_agg(None, fb, mapped, per_tile, (),
                                synth_tile=("1", f"{gidx:04d}"))
             store.add(fb, seq=gidx)

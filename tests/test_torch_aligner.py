@@ -183,8 +183,9 @@ def test_create_rejects_reads_over_kernel_limit_on_cuda():
 
 def test_port_runs_without_jax(tmp_path):
     """What the GPU machine sees: neither jax nor the JAX package.  The
-    library slice and the workflow (FASTQ -> sorted BAM, with its spawned
-    output process, which re-runs this script's top) run on cpu."""
+    library slice and the workflow (FASTQ -> sorted BAM, single-end and
+    paired-end, with its spawned output process, which re-runs this
+    script's top) run on cpu."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -227,6 +228,20 @@ def test_port_runs_without_jax(tmp_path):
             bam = read_bam(d / "out" / "sorted.bam")[2]
             assert len(bam) == 64
             assert sum(r.is_mapped for r in bam) == mapped
+            sp = synthetic.make_pairs(rng, genome.codes, 48, far_frac=0.0,
+                                      damaged_frac=0.1)
+            for e, reads in ((1, sp.bases1), (2, sp.bases2)):
+                with open(d / f"p{e}.fq", "w") as f:
+                    for i, r in enumerate(reads):
+                        s = "".join("ACGTN"[c] for c in r)
+                        f.write(f"@t{i}\\n{s}\\n+\\n{'I' * 100}\\n")
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "idx"), output_dir=str(d / "pe"),
+                fastq1=str(d / "p1.fq"), fastq2=str(d / "p2.fq"),
+                batch_size=32, device="cpu")).run()
+            pe = read_bam(d / "pe" / "sorted.bam")[2]
+            assert len(pe) == 96
+            assert sum(r.flag & 0x2 != 0 for r in pe) >= 72
             loaded = {m.split(".")[0] for m in sys.modules
                       if sys.modules[m] is not None}
             assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded

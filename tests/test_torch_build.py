@@ -341,8 +341,21 @@ def test_fastq_streaming_equals_jax(tmp_path):
         jfastq.estimate_fastq_reads(path) == 82
     assert list(fastq.iter_fastq_records_bulk(path, chunk_bytes=4096)) == \
         list(jfastq.iter_fastq_records_bulk(path, chunk_bytes=4096))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        next(fastq.iter_fastq_batches(path, path, 32))
+    # paired streaming: read 2 rides beside read 1, each at its own width
+    (d / "r2.fq").write_text("".join(
+        f"@{i}\n{'ACGT' * 20}\n+\n{'I' * 80}\n" for i in range(82)))
+    got = list(fastq.iter_fastq_batches(path, d / "r2.fq", 32))
+    want = list(jfastq.iter_fastq_batches(path, d / "r2.fq", 32))
+    assert len(got) == len(want) == 3
+    for (b, b2, bc), (jb, jb2, jbc) in zip(got, want):
+        assert bc is jbc is None and b2.read_len == 80
+        for x, y in ((b, jb), (b2, jb2)):
+            assert list(x.names) == list(y.names) and x.n_valid == y.n_valid
+            for name in ("bases", "quals", "lengths"):
+                np.testing.assert_array_equal(getattr(x, name),
+                                              getattr(y, name))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        next(fastq.iter_fastq_batches(path, None, 32, barcode_path=path))
     names = ["a", "bb", "ccc"]
     for ln, jln in ((fastq.LazyNames.from_list(names),
                      jfastq.LazyNames.from_list(names)),):

@@ -142,3 +142,47 @@ def test_banded_sw_uint8_inputs_and_report(cuda_device):
     assert torch.equal(g32, g8) and torch.equal(tb32, tb8)
     report, seconds = build_info("banded_sw")
     print(f"\nbanded_sw build: {seconds:.1f} s\n{report}")
+
+
+@pytest.mark.cuda
+def test_paired_aligner_card_equals_cpu(cuda_device):
+    """The paired library path on the card against the CPU: TLS learned
+    equal, and the records' core fields equal (MAPQ: floor flips only),
+    with the banded SW kernel launched for both ends' polish."""
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.aligner import PairedAligner
+    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch
+
+    rng = np.random.default_rng(3)
+    genome = synthetic.make_genome(rng, 250_000, families=((600, 10, 0.02),),
+                                   n_island=(150_000, 500))
+    index = build_index(genome, seed_len=32)
+    sp = synthetic.make_pairs(rng, genome.codes, 1024)
+    names = [f"t{i}" for i in range(1024)]
+
+    def batches():
+        return tuple(ReadBatch(names=names, bases=b.copy(),
+                               quals=np.full(b.shape, 30, np.uint8),
+                               lengths=np.full(1024, 100, np.int32))
+                     for b in (sp.bases1, sp.bases2))
+
+    out = []
+    for dev in (cuda_device, "cpu"):
+        al = PairedAligner.create(index, read_len=100, device=dev)
+        tls = al.learn_tls([batches()])
+        before = sw.banded_sw.launches
+        recs = al.align_to_sam(*batches())
+        out.append((tls, recs, sw.banded_sw.launches - before))
+    (tls_g, gpu, n_g), (tls_c, cpu, n_c) = out
+    assert tls_g == tls_c and {tls_g.best0, tls_g.best1} == {1, 6}
+    assert n_g > 0 and n_c == 0
+
+    def core(r):
+        return (r.qname, r.flag, r.pos, r.cigar, r.tags.get("NM"), r.rnext,
+                r.pnext, r.tlen)
+    assert [core(r) for r in gpu] == [core(r) for r in cpu]
+    dq = np.array([abs(g.mapq - c.mapq) for g, c in zip(gpu, cpu)])
+    assert dq.max() <= 1 and (dq > 0).sum() <= 0.005 * len(dq)
+    proper = np.array([r.flag & 0x2 != 0 for r in gpu])
+    assert proper.mean() > 0.9

@@ -217,14 +217,13 @@ def test_options_match_jax_plus_device():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"fastq2": "r2.fq"}, 3),
     ({"run_folder": "run"}, 8),
     ({"bam_input": "in.bam"}, 9),
     ({"sample_sheet": "sheet.csv"}, 10),
     ({"devices": 2}, 7),
     ({"dist_processes": 2}, 7),
     ({"reference": "a.fa,b.fa"}, 5),
-], ids=["fastq2", "run_folder", "bam_input", "sample_sheet", "devices2",
+], ids=["run_folder", "bam_input", "sample_sheet", "devices2",
         "multi_host", "grouped_reference"])
 def test_unported_options_raise(inputs, tmp_path, kw, item):
     with pytest.raises(NotImplementedError,
@@ -266,7 +265,7 @@ bases = np.zeros((3, 10), np.uint8)
 quals = np.full((3, 10), 30, np.uint8)
 q, rq = queue.Queue(), queue.Queue()
 q.put((0, 2, names.mat, names.lens, (bases, quals,
-       np.array([10, 10, 0], np.int32)), res))
+       np.array([10, 10, 0], np.int32)), None, res))
 q.put(None)
 output_proc._child_main(dict(
     bins_dir={str(tmp_path / 'bins')!r}, contig_offsets=np.array([0, 1000]),
