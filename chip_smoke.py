@@ -46,14 +46,34 @@ their path against its plain torch version.  Phases, one line each:
   8. paired card vs CPU: the first 4,096 pairs through the workflow on both
      devices give the same TLS and (qname, flag, pos, CIGAR, NM, RNEXT,
      PNEXT, TLEN) (MAPQ: floor flips only), and one 2,048-pair batch
-     through PairedAligner.align_to_sam the same.
+     through PairedAligner.align_to_sam the same;
+  9. sort-reference on the card: the same genome as eight contigs, through
+     `python -m isaac_aligner_tpu_torch sort-reference --group-limit
+     2400000` (two groups of four contigs, annotated on "cuda"); checks the
+     manifest, each group's planes and neighbor bits against an in-memory
+     build and annotation, contig 0's annotated index against the host
+     oracle `find_neighbors`, and 20,000 planted 16/32/64-mers on the card
+     against the CPU; prints the build and annotation seconds per group;
+ 10. grouped single-end workflow: 524,288 reads of 100 bp on the eight
+     contigs through AlignWorkflow on "cuda" against the grouped directory,
+     both groups resident; checks as phase 5 (placement in global
+     coordinates); prints the upload seconds per group and the plane bytes
+     beside the card's free memory; holds banded_sw bit-equal to its plain
+     version, and times both, at the run's mean pairs per launch; then the
+     first 32,768 reads resident and group-major give the same sorted.bam
+     bytes, with the card's allocated memory back at its baseline after
+     every group's release;
+ 11. grouped paired workflow: 262,144 pairs on the eight contigs, resident,
+     checked as phase 7, banded_sw checked and timed at its mean pairs per
+     launch; then the first 4,096 pairs group-major on the card and on the
+     CPU give the same TLS and core fields.
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
 Then one JSON line of kernel results (launches: the workflows' runs of
-phases 5 and 7), the card line, and the last line {"ok": true, "device":
-{...}}.
+phases 5, 7, 10 and 11), the card line, and the last line {"ok": true,
+"device": {...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
 
@@ -63,6 +83,7 @@ printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,13 +100,23 @@ if __name__ != "__mp_main__":
 
     from isaac_aligner_tpu_torch import synthetic
     from isaac_aligner_tpu_torch.align import pairs
+    from isaac_aligner_tpu_torch.align.pipeline import plane_bytes
     from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner
-    from isaac_aligner_tpu_torch.index.build import SeedIndex, build_index
+    from isaac_aligner_tpu_torch.index.build import (SeedIndex, build_index,
+                                                     unbias_i32_to_u32)
+    from isaac_aligner_tpu_torch.index.groups import (load_grouped_indexes,
+                                                      split_genome_groups,
+                                                      subset_genome)
+    from isaac_aligner_tpu_torch.index.neighbors import (annotate_index,
+                                                         find_neighbors)
+    from isaac_aligner_tpu_torch.index.neighbors_device import \
+        find_neighbors_device
     from isaac_aligner_tpu_torch.io.bam import read_bam
     from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
     from isaac_aligner_tpu_torch.io.sam import write_sam
     from isaac_aligner_tpu_torch.native import build as native
     from isaac_aligner_tpu_torch.ops import _build, sw
+    from isaac_aligner_tpu_torch.workflow import align as wfmod
     from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
                                                         WorkflowOptions)
 
@@ -98,6 +129,10 @@ PE_PAIRS = 262_144          # the JAX benchmark's e2e_pe size (bench.py:361)
 PE_SUBSET = 4_096
 PE_LIB = 2_048
 SW_PAIRS = 8_192
+N_CONTIGS = 8               # phases 9-11: the genome as eight contigs
+GROUP_LIMIT = 2_400_000     # two groups of four 575 kbp contigs
+GM_SUBSET = 32_768          # reads run resident and group-major (phase 10)
+PLANTED = 20_000            # planted k-mers of the annotation check
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
 
@@ -247,7 +282,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/8] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/11] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -302,7 +337,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/8] slice: {genome.total_length} bp genome, "
+    print(f"[4/11] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -326,7 +361,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/8] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/11] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -369,10 +404,33 @@ def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
     launches = sw.banded_sw.launches
     libs = native.loaded()
 
-    out = tmp / "wf" / "sorted.bam"
     t0 = time.perf_counter()
-    _text, refs, recs = read_bam(out)
+    aligned_frac, placed_frac = check_se_bam(tmp / "wf" / "sorted.bam",
+                                             genome, sim)
     read_s = time.perf_counter() - t0
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    print(f"[5/11] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+          f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
+          f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
+          f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
+          f"realigned {build['realigned']}); aligned {aligned_frac:.4f}, "
+          f"within 8 bp of truth {placed_frac:.4f}, banded_sw launches "
+          f"{launches}; native host libraries {libs}; read_bam {read_s:.1f} "
+          f"s, setup {setup_s:.1f} s [{card}]", flush=True)
+    if launches <= 0:
+        raise AssertionError("the workflow never launched the banded_sw kernel")
+    return launches
+
+
+def stage_split(ms: dict) -> str:
+    return ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
+
+
+def check_se_bam(out: Path, genome, sim) -> tuple[float, float]:
+    """A single-end run's sorted.bam: one record a read, coordinate order,
+    .bai and .md5, >= 0.95 aligned and within 8 bp of the truth (global
+    coordinates); returns (aligned, placed) fractions."""
+    _text, refs, recs = read_bam(out)
     offsets = {c.name: c.offset for c in genome.contigs}
     ref_index = {name: i for i, (name, _len) in enumerate(refs)}
     mapped = np.array([r.is_mapped for r in recs])
@@ -384,30 +442,18 @@ def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
     first_unmapped = int(np.argmin(mapped)) if not mapped.all() else len(recs)
     aligned_frac = float(mapped.mean())
     placed_frac = float((mapped & (np.abs(gpos - sim.starts[idx]) <= 8)).mean())
-    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
-    stages = ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
-    print(f"[5/8] workflow: {len(recs)} reads, FASTQ->BAM {WF_READS / wall:.1f} "
-          f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
-          f"{stages}; build_seconds {build['build_seconds']:.2f} s, "
-          f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
-          f"realigned {build['realigned']}); aligned {aligned_frac:.4f}, "
-          f"within 8 bp of truth {placed_frac:.4f}, banded_sw launches "
-          f"{launches}; native host libraries {libs}; read_bam {read_s:.1f} "
-          f"s, setup {setup_s:.1f} s [{card}]", flush=True)
-    if len(recs) != WF_READS:
-        raise AssertionError(f"{len(recs)} BAM records for {WF_READS} reads")
+    if len(recs) != sim.starts.shape[0]:
+        raise AssertionError(f"{len(recs)} BAM records for "
+                             f"{sim.starts.shape[0]} reads")
     if not ordered or mapped[first_unmapped:].any():
-        raise AssertionError("sorted.bam is not in coordinate order")
+        raise AssertionError(f"{out} is not in coordinate order")
     for ext in (".bai", ".md5"):
         if not Path(str(out) + ext).is_file():
-            raise AssertionError(f"no sorted.bam{ext}")
-    if aligned_frac < 0.95:
-        raise AssertionError(f"aligned fraction {aligned_frac} < 0.95")
-    if placed_frac < 0.95:
-        raise AssertionError(f"placement fraction {placed_frac} < 0.95")
-    if launches <= 0:
-        raise AssertionError("the workflow never launched the banded_sw kernel")
-    return launches
+            raise AssertionError(f"no {out.name}{ext}")
+    if aligned_frac < 0.95 or placed_frac < 0.95:
+        raise AssertionError(f"aligned {aligned_frac}, placed {placed_frac} "
+                             f"< 0.95")
+    return aligned_frac, placed_frac
 
 
 def core_fields(path: Path) -> dict:
@@ -456,7 +502,7 @@ def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
     flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
-    print(f"[6/8] card vs CPU: workflow on {WF_SUBSET} reads, "
+    print(f"[6/11] card vs CPU: workflow on {WF_SUBSET} reads, "
           f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
           f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
           flush=True)
@@ -475,82 +521,35 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     setup_s = time.perf_counter() - t0
 
     sw.banded_sw.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     stats = run_workflow(tmp / "idx", tmp / "pe1.fq", tmp / "pe_wf", "cuda",
                          BATCH, fastq2=tmp / "pe2.fq")
     wall = time.perf_counter() - t0
     launches = sw.banded_sw.launches
+    working = working_set(mem0, [SeedIndex.load(tmp / "idx")])
 
-    out = tmp / "pe_wf" / "sorted.bam"
     t0 = time.perf_counter()
-    _text, refs, recs = read_bam(out)
+    m = check_paired_bam(tmp / "pe_wf" / "sorted.bam", genome, sp, stats)
     read_s = time.perf_counter() - t0
-    offsets = {c.name: c.offset for c in genome.contigs}
-    ref_index = {name: i for i, (name, _len) in enumerate(refs)}
-    n = PE_PAIRS
-    mapped = np.zeros((2, n), bool)
-    placed = np.zeros((2, n), bool)
-    proper = np.zeros(n, bool)
-    truth = (sp.start1, sp.start2)
-    for r in recs:
-        i = int(r.qname[1:])
-        e = 0 if r.flag & 0x40 else 1
-        if r.is_mapped:
-            mapped[e, i] = True
-            placed[e, i] = abs(offsets[r.rname] + r.pos - 1 - truth[e][i]) <= 8
-        proper[i] |= bool(r.flag & 0x2)
-    # an unmapped read with a mapped mate sits at its mate's coordinates
-    placed_at = np.array([r.rname != "*" for r in recs])
-    keys = [(ref_index[r.rname], r.pos) for r in recs if r.rname != "*"]
-    ordered = all(a <= b for a, b in zip(keys, keys[1:]))
-    first_unplaced = (int(np.argmin(placed_at)) if not placed_at.all()
-                      else len(recs))
-    ms, build, state = (stats["MatchSelectorStats"], stats["BuildStats"],
-                        stats["state"])
-    tls = pairs.TlsStatic(**state["tls"])
-    finder = state["stats"].get("match_finder", {})
+    ms, build, tls = stats["MatchSelectorStats"], stats["BuildStats"], m["tls"]
+    finder = stats["state"]["stats"].get("match_finder", {})
     work = ms["device_work"]
-    normal = ~sp.damaged & ~sp.far
-    proper_frac = float(proper[normal].mean())
-    rescued_frac = float(placed[1, sp.damaged].mean())
-    stages = ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
-
-    print(f"[7/8] paired workflow: {n} pairs, {len(recs)} records, FASTQ->BAM "
+    n = PE_PAIRS
+    print(f"[7/11] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
           f"{2 * n / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
-          f"{ms['align_seconds']:.2f} s: {stages}; build_seconds "
+          f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s, {build['bins']} bin(s), "
           f"duplicates {build['duplicates']}, realigned "
-          f"{build['realigned']}); learned {tls}; aligned "
-          f"{mapped[0].mean():.4f}/{mapped[1].mean():.4f}, within 8 bp "
-          f"{placed[0].mean():.4f}/{placed[1].mean():.4f} (read 1/read 2); "
-          f"proper {proper_frac:.4f} of {int(normal.sum())} undamaged near "
-          f"pairs, {int(proper[sp.far].sum())} of {int(sp.far.sum())} far; "
-          f"rescued {rescued_frac:.4f} of {int(sp.damaged.sum())} damaged "
-          f"mates; proper_pairs {ms['proper_pairs']}, anomalous_pairs "
+          f"{build['realigned']}); learned {tls}; {m['summary']}; "
+          f"proper_pairs {ms['proper_pairs']}, anomalous_pairs "
           f"{finder.get('anomalous_pairs')}, rescue_skipped "
           f"{finder.get('rescue_skipped', 0)}; banded_sw launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
-          f"{work['rescue_calls']} calls; read_bam {read_s:.1f} s, setup "
-          f"{setup_s:.1f} s [{card}]", flush=True)
-    if len(recs) != 2 * n:
-        raise AssertionError(f"{len(recs)} BAM records for {n} pairs")
-    if not ordered or placed_at[first_unplaced:].any():
-        raise AssertionError("paired sorted.bam is not in coordinate order")
-    for ext in (".bai", ".md5"):
-        if not Path(str(out) + ext).is_file():
-            raise AssertionError(f"no paired sorted.bam{ext}")
-    for e in (0, 1):
-        if mapped[e].mean() < 0.95 or placed[e].mean() < 0.95:
-            raise AssertionError(f"read {e + 1}: aligned {mapped[e].mean()}, "
-                                 f"placed {placed[e].mean()} < 0.95")
-    if proper_frac < 0.90 or proper[sp.far].any():
-        raise AssertionError(f"proper pairs {proper_frac} of the near pairs, "
-                             f"{int(proper[sp.far].sum())} far")
-    if rescued_frac < 0.80:
-        raise AssertionError(f"rescued {rescued_frac} < 0.80 of the damaged "
-                             f"mates")
-    if {tls.best0, tls.best1} != {1, 6} or abs(tls.median - 300) > 15:
-        raise AssertionError(f"learned TLS {tls}")
+          f"{work['rescue_calls']} calls; {working}; read_bam {read_s:.1f} s, "
+          f"setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the paired workflow never launched banded_sw")
 
@@ -573,7 +572,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     # 5 calls: each enqueues ~140 kernels, and more than the device's
     # launch queue holds behind the sleep would make the host wait
     rescue_ms = cuda_ms(rescue, 5)
-    print(f"[7/8] rescue_shadows at the run's shape ({rows} rows x {window} "
+    print(f"[7/11] rescue_shadows at the run's shape ({rows} rows x {window} "
           f"offsets x {READ_LEN} bases, damaged mates, found {found:.3f}): "
           f"{rescue_ms:.4f} ms a call, {work['rescue_calls']} calls in the "
           f"run", flush=True)
@@ -581,12 +580,87 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     n_pe = max(1, round(work["sw_pairs"] / launches))
     timing = check_and_time(rng, al.device, n_pe, READ_LEN, sw.BWA_SCORES,
                             True)
-    print(f"[7/8] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
+    print(f"[7/11] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
           f"{work['sw_pairs']} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
           f"{timing['plain_ms']:.2f} ms", flush=True)
     return launches, sp, tls
+
+
+def working_set(mem0: int, indexes: list) -> str:
+    """The device working set beside the planes of the paired run of BATCH
+    pairs just ended (its peak less what was allocated before it and less
+    the planes), held against the model that the workflow's group-major
+    decision subtracts from the card's free memory; raises if the run took
+    more than the model."""
+    planes = sum(plane_bytes(ix) for ix in indexes)
+    working = torch.cuda.max_memory_allocated() - mem0 - planes
+    model = wfmod.batch_working_set(BATCH, READ_LEN, len(indexes))
+    if working > model:
+        raise AssertionError(f"batch working set {working} B over the "
+                             f"model's {model} B ({len(indexes)} groups)")
+    return (f"batch working set {working} B ({working / BATCH:.1f} B a "
+            f"pair) beside {planes} B of planes, model {model} B")
+
+
+def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
+    """A paired run's sorted.bam: two records a pair, coordinate order,
+    .bai and .md5, per end >= 0.95 aligned and within 8 bp of the truth
+    (global coordinates), proper pairs on >= 0.90 of the undamaged near
+    pairs and on no far one, >= 0.80 of the damaged mates rescued, and the
+    learned TLS; returns the TLS and a summary line."""
+    _text, refs, recs = read_bam(out)
+    offsets = {c.name: c.offset for c in genome.contigs}
+    ref_index = {name: i for i, (name, _len) in enumerate(refs)}
+    n = sp.start1.shape[0]
+    mapped = np.zeros((2, n), bool)
+    placed = np.zeros((2, n), bool)
+    proper = np.zeros(n, bool)
+    truth = (sp.start1, sp.start2)
+    for r in recs:
+        i = int(r.qname[1:])
+        e = 0 if r.flag & 0x40 else 1
+        if r.is_mapped:
+            mapped[e, i] = True
+            placed[e, i] = abs(offsets[r.rname] + r.pos - 1 - truth[e][i]) <= 8
+        proper[i] |= bool(r.flag & 0x2)
+    # an unmapped read with a mapped mate sits at its mate's coordinates
+    placed_at = np.array([r.rname != "*" for r in recs])
+    keys = [(ref_index[r.rname], r.pos) for r in recs if r.rname != "*"]
+    ordered = all(a <= b for a, b in zip(keys, keys[1:]))
+    first_unplaced = (int(np.argmin(placed_at)) if not placed_at.all()
+                      else len(recs))
+    tls = pairs.TlsStatic(**stats["state"]["tls"])
+    normal = ~sp.damaged & ~sp.far
+    proper_frac = float(proper[normal].mean())
+    rescued_frac = float(placed[1, sp.damaged].mean())
+    if len(recs) != 2 * n:
+        raise AssertionError(f"{len(recs)} BAM records for {n} pairs")
+    if not ordered or placed_at[first_unplaced:].any():
+        raise AssertionError(f"paired {out} is not in coordinate order")
+    for ext in (".bai", ".md5"):
+        if not Path(str(out) + ext).is_file():
+            raise AssertionError(f"no paired {out.name}{ext}")
+    for e in (0, 1):
+        if mapped[e].mean() < 0.95 or placed[e].mean() < 0.95:
+            raise AssertionError(f"read {e + 1}: aligned {mapped[e].mean()}, "
+                                 f"placed {placed[e].mean()} < 0.95")
+    if proper_frac < 0.90 or proper[sp.far].any():
+        raise AssertionError(f"proper pairs {proper_frac} of the near pairs, "
+                             f"{int(proper[sp.far].sum())} far")
+    if rescued_frac < 0.80:
+        raise AssertionError(f"rescued {rescued_frac} < 0.80 of the damaged "
+                             f"mates")
+    if {tls.best0, tls.best1} != {1, 6} or abs(tls.median - 300) > 15:
+        raise AssertionError(f"learned TLS {tls}")
+    return {"tls": tls, "summary": (
+        f"aligned {mapped[0].mean():.4f}/{mapped[1].mean():.4f}, within 8 bp "
+        f"{placed[0].mean():.4f}/{placed[1].mean():.4f} (read 1/read 2); "
+        f"proper {proper_frac:.4f} of {int(normal.sum())} undamaged near "
+        f"pairs, {int(proper[sp.far].sum())} of {int(sp.far.sum())} far; "
+        f"rescued {rescued_frac:.4f} of {int(sp.damaged.sum())} damaged "
+        f"mates")}
 
 
 def pair_core(recs) -> dict:
@@ -633,10 +707,275 @@ def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
         al.tls = tls
         lib[device] = pair_core(al.align_to_sam(*batches()))
     flips = compare_pairs("paired library", lib["cuda"], lib["cpu"], PE_LIB)
-    print(f"[8/8] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
+    print(f"[8/11] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
           f"{runs['cuda'][0]} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
           f"tlen equal, MAPQ floor flips {wf_flips}; library on {PE_LIB} "
           f"pairs, equal, MAPQ floor flips {flips}", flush=True)
+
+
+def write_fasta(path: Path, genome) -> None:
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "w") as f:
+        for c in genome.contigs:
+            seq = letters[genome.codes[c.offset:c.end]].tobytes().decode()
+            f.write(f">{c.name}\n" + "\n".join(
+                seq[i:i + 80] for i in range(0, len(seq), 80)) + "\n")
+
+
+def unique_planes(index) -> tuple:
+    """(unique k-mer word planes, inverse) of a 32-mer index's sorted key
+    planes, as annotate_index dedups them."""
+    words = [unbias_i32_to_u32(np.asarray(p))
+             for p in (index.key_hi, index.key_lo)]
+    new = np.ones(words[0].shape[0], bool)
+    new[1:] = (words[0][1:] != words[0][:-1]) | (words[1][1:] != words[1][:-1])
+    return tuple(w[new] for w in words), np.cumsum(new) - 1
+
+
+def phase_sort_reference(args, card: str, tmp: Path):
+    """sort-reference on the card: the phase-4 genome as eight contigs, two
+    contig groups, annotated on "cuda"; returns the genome."""
+    genome = synthetic.make_genome(np.random.default_rng(args.seed),
+                                   n_contigs=N_CONTIGS)
+    write_fasta(tmp / "ref8.fa", genome)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "isaac_aligner_tpu_torch", "sort-reference",
+         "-g", str(tmp / "ref8.fa"), "-o", str(tmp / "idx8"),
+         "--group-limit", str(GROUP_LIMIT)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"sort-reference failed: {proc.stdout}"
+                             f"{proc.stderr}")
+    manifest = json.loads((tmp / "idx8" / "multi-reference.json").read_text())
+    names = split_genome_groups(genome.contigs, GROUP_LIMIT)
+    if (manifest["groups"] != ["group_00", "group_01"]
+            or manifest["total_length"] != genome.total_length
+            or manifest["limit"] != GROUP_LIMIT
+            or [len(g) for g in names] != [4, 4]):
+        raise AssertionError(f"manifest {manifest} for groups {names}")
+    # each group against an in-memory build and annotation on the card
+    rows = []
+    for gname, cnames in zip(manifest["groups"], names):
+        disk = SeedIndex.load(tmp / "idx8" / gname)
+        t0 = time.perf_counter()
+        ref = build_index(subset_genome(genome, cnames), seed_len=32)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bits = annotate_index(ref.key_hi, ref.key_lo, k=32, device="cuda")
+        annot_s = time.perf_counter() - t0
+        if [c.name for c in disk.genome.contigs] != cnames or not all(
+                np.array_equal(getattr(disk, f), getattr(ref, f))
+                for f in ("key_hi", "key_lo", "pos")):
+            raise AssertionError(f"{gname}: planes differ from build_index")
+        if not np.array_equal(disk.has_neighbors, bits.astype(np.uint8)):
+            raise AssertionError(f"{gname}: neighbor bits differ")
+        rows.append(f"{gname} {ref.num_records} records, build "
+                    f"{build_s:.2f} s, annotation {annot_s:.2f} s, flagged "
+                    f"{float(bits.mean()):.4f}")
+    # contig 0 alone against the host oracle
+    idx0 = build_index(subset_genome(genome, [genome.contigs[0].name]),
+                       seed_len=32, annotate_neighbors=True, device="cuda")
+    uniq, inverse = unique_planes(idx0)
+    st: dict = {}
+    t0 = time.perf_counter()
+    dev_bits = find_neighbors_device(uniq, 32, device="cuda", stats=st)
+    dev_s = time.perf_counter() - t0
+    km = (uniq[0].astype(np.uint64) << np.uint64(32)) | uniq[1]
+    t0 = time.perf_counter()
+    host = find_neighbors(km, k=32)
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(idx0.has_neighbors, dev_bits[inverse]):
+        raise AssertionError("contig 0: build_index bits != the device program")
+    # equal where no equal-prefix run exceeds the 256-row window; beyond
+    # it the window sees a superset of the host's run-capped pairs
+    if st["max_run"] <= 256 and not np.array_equal(dev_bits, host):
+        raise AssertionError(f"contig 0: card {int(dev_bits.sum())} != host "
+                             f"oracle {int(host.sum())} flagged k-mers")
+    if (host & ~dev_bits).any():
+        raise AssertionError("contig 0: the card missed oracle neighbors")
+    # planted neighbors, card against the CPU
+    planted = []
+    for k in (16, 32, 64):
+        planes = synthetic.planted_kmers(np.random.default_rng(args.seed + k),
+                                         PLANTED, k)
+        t0 = time.perf_counter()
+        got = find_neighbors_device(planes, k, device="cuda")
+        k_s = time.perf_counter() - t0
+        want = find_neighbors_device(planes, k, device="cpu")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"planted {k}-mers: card != CPU")
+        planted.append(f"k={k} {int(got.sum())} of {got.size} in {k_s:.3f} s")
+    print(f"[9/11] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
+          f"bp, --group-limit {GROUP_LIMIT}: {len(names)} groups in "
+          f"{cli_s:.2f} s (CLI process); {'; '.join(rows)}; contig 0 "
+          f"({int(km.size)} unique 32-mers): card {int(dev_bits.sum())} "
+          f"flagged in {dev_s:.2f} s, host oracle {int(host.sum())} in "
+          f"{host_s:.2f} s, longest equal-prefix run {st['max_run']}, "
+          f"{st['scan_steps']} scan steps; planted card == CPU: "
+          f"{'; '.join(planted)} [{card}]", flush=True)
+    return genome
+
+
+@contextlib.contextmanager
+def group_major(released: list | None = None):
+    """Force group-major runs (a zero device budget); with `released`, the
+    card's allocated bytes after every release_device append to it."""
+    patched = [(wfmod, "device_memory_budget", lambda *_: 0)]
+    if released is not None:
+        for cls in (Aligner, PairedAligner):
+            def rel(self, _orig=cls.release_device):
+                _orig(self)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize()
+                    released.append(torch.cuda.memory_allocated())
+            patched.append((cls, "release_device", rel))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    try:
+        for obj, name, value in patched:
+            setattr(obj, name, value)
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def print_grouped_kernel(phase: str, what: str, rng, pairs_sw: int,
+                         launches: int) -> None:
+    """The kernel against its plain version, and timed, at the mean pairs
+    per launch that a grouped run gave it (each group polishes its own
+    rows, so its launches are smaller than a single index's)."""
+    n_g = max(1, round(pairs_sw / launches))
+    timing = check_and_time(rng, torch.device("cuda"), n_g, READ_LEN,
+                            sw.BWA_SCORES, True)
+    print(f"[{phase}] banded_sw at the {what}'s shape (N={n_g} L={READ_LEN}, "
+          f"{pairs_sw} pairs in {launches} launches): bit-equal to plain; "
+          f"kernel {timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
+          f"{timing['plain_ms']:.2f} ms", flush=True)
+
+
+def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
+    """FASTQ -> sorted BAM against the grouped directory, both groups
+    resident; then a subset resident and group-major.  Returns the
+    kernel's launches in the full run."""
+    rng = np.random.default_rng(args.seed + 5)
+    sim = synthetic.make_reads(rng, genome.codes, WF_READS,
+                               read_len=READ_LEN, indel_frac=0.03, max_indel=8)
+    write_fastq(tmp / "g_wf.fq", sim.bases)
+    write_fastq(tmp / "g_sub.fq", sim.bases[:GM_SUBSET])
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx8", tmp / "g_wf.fq", tmp / "g_wf", "cuda",
+                         BATCH)
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    aligned_frac, placed_frac = check_se_bam(tmp / "g_wf" / "sorted.bam",
+                                             genome, sim)
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    if ms.get("group_major") is not False or len(ms["groups"]) != 2:
+        raise AssertionError(f"groups {ms.get('groups')}, group_major "
+                             f"{ms.get('group_major')}")
+    if launches <= 0:
+        raise AssertionError("the grouped workflow never launched banded_sw")
+    finder = stats["state"]["stats"].get("match_finder", {})
+    free, total = torch.cuda.mem_get_info()
+    groups = "; ".join(f"{g['records']} records, {g['plane_bytes']} B of "
+                       f"planes, upload {g['upload_seconds']:.3f} s"
+                       for g in ms["groups"])
+    print(f"[10/11] grouped workflow: {WF_READS} reads on {N_CONTIGS} contigs "
+          f"in 2 groups, FASTQ->BAM {WF_READS / wall:.1f} reads/s "
+          f"({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
+          f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
+          f"duplicates {build['duplicates']}, realigned {build['realigned']}"
+          f"); aligned {aligned_frac:.4f}, within 8 bp of truth "
+          f"{placed_frac:.4f} (pass-2 reads {finder.get('pass2_reads')}, "
+          f"dropped {finder.get('pass2_dropped')}, over both groups); "
+          f"banded_sw launches {launches} "
+          f"({ms['device_work']['sw_pairs']} pairs); groups: {groups}; card "
+          f"free {free} of {total} B [{card}]", flush=True)
+    print_grouped_kernel("10/11", "grouped run", rng,
+                         ms["device_work"]["sw_pairs"], launches)
+
+    run_workflow(tmp / "idx8", tmp / "g_sub.fq", tmp / "g_res", "cuda", BATCH)
+    released: list = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with group_major(released):
+        st = run_workflow(tmp / "idx8", tmp / "g_sub.fq", tmp / "g_gm",
+                          "cuda", BATCH)
+    if st["MatchSelectorStats"]["group_major"] is not True:
+        raise AssertionError("the group-major run stayed resident")
+    if (tmp / "g_gm" / "sorted.bam").read_bytes() != \
+            (tmp / "g_res" / "sorted.bam").read_bytes():
+        raise AssertionError("group-major sorted.bam != resident")
+    if released != [base] * 2:
+        raise AssertionError(f"allocated after each release {released}, "
+                             f"baseline {base}")
+    uploads = [g["upload_seconds"] for g in st["MatchSelectorStats"]["groups"]]
+    print(f"[10/11] {GM_SUBSET} reads resident and group-major: sorted.bam "
+          f"equal; allocated {released} B after the releases, baseline "
+          f"{base} B; group-major uploads {uploads} s", flush=True)
+    return launches
+
+
+def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
+    """Paired FASTQ -> sorted BAM against the grouped directory, resident;
+    then a subset group-major on the card and on the CPU.  Returns the
+    kernel's launches in the full run."""
+    rng = np.random.default_rng(args.seed + 6)
+    sp = synthetic.make_pairs(rng, genome.codes, PE_PAIRS)
+    for e, reads in ((1, sp.bases1), (2, sp.bases2)):
+        write_fastq(tmp / f"gpe{e}.fq", reads, "t")
+        write_fastq(tmp / f"gpe_sub{e}.fq", reads[:PE_SUBSET], "t")
+    sw.banded_sw.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx8", tmp / "gpe1.fq", tmp / "gpe_wf",
+                         "cuda", BATCH, fastq2=tmp / "gpe2.fq")
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    working = working_set(mem0,
+                          load_grouped_indexes(tmp / "idx8", mmap=True))
+    m = check_paired_bam(tmp / "gpe_wf" / "sorted.bam", genome, sp, stats)
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    work = ms["device_work"]
+    if ms.get("group_major") is not False or launches <= 0:
+        raise AssertionError(f"group_major {ms.get('group_major')}, "
+                             f"launches {launches}")
+    print(f"[11/11] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
+          f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
+          f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
+          f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
+          f"{m['summary']}; banded_sw launches {launches} "
+          f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
+          f"{work['rescue_calls']} calls; {working} [{card}]", flush=True)
+    print_grouped_kernel("11/11", "grouped paired run", rng,
+                         work["sw_pairs"], launches)
+
+    runs = {}
+    with group_major():
+        for device in ("cuda", "cpu"):
+            out = tmp / f"gpe_sub_{device}"
+            st = run_workflow(tmp / "idx8", tmp / "gpe_sub1.fq", out, device,
+                              PE_SUBSET, fastq2=tmp / "gpe_sub2.fq")
+            if st["MatchSelectorStats"]["group_major"] is not True:
+                raise AssertionError(f"{device}: the run stayed resident")
+            runs[device] = (st["state"]["tls"],
+                            pair_core(read_bam(out / "sorted.bam")[2]))
+    if runs["cuda"][0] != runs["cpu"][0]:
+        raise AssertionError(f"learned TLS card {runs['cuda'][0]} vs CPU "
+                             f"{runs['cpu'][0]}")
+    flips = compare_pairs("grouped paired workflow", runs["cuda"][1],
+                          runs["cpu"][1], PE_SUBSET)
+    print(f"[11/11] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
+          f"equal, qname/flag/pos/cigar/NM/rnext/pnext/tlen equal, MAPQ floor "
+          f"flips {flips}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -646,17 +985,18 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: no GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/8] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/11] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/8] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/11] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
@@ -668,10 +1008,15 @@ def main() -> None:
         pe_launches, sp, tls = phase_paired_workflow(args, genome, card,
                                                      Path(d))
         phase_paired_card_vs_cpu(Path(d), sp, tls)
-    launches = se_launches + pe_launches
+        genome8 = phase_sort_reference(args, card, Path(d))
+        gse_launches = phase_grouped_workflow(args, genome8, card, Path(d))
+        gpe_launches = phase_grouped_paired(args, genome8, card, Path(d))
+    launches = se_launches + pe_launches + gse_launches + gpe_launches
     print(f"banded_sw launches on the main paths: single-end workflow "
-          f"{se_launches} + paired workflow {pe_launches} = {launches}",
-          flush=True)
+          f"{se_launches} + paired workflow {pe_launches} + grouped "
+          f"single-end workflow {gse_launches} + grouped paired workflow "
+          f"{gpe_launches} = {launches}; all phases in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     jax_mods = sorted(m for m in sys.modules if m.startswith("jax")
                       or m.split(".")[0] == "isaac_aligner_tpu")
     if jax_mods:

@@ -9,7 +9,14 @@ inputs.
   paired-end: FASTQ (pairs) -> `workflow.align.AlignWorkflow` (or `python
   -m isaac_aligner_tpu_torch align`) -> sorted, duplicate-marked,
   gap-realigned BAM with .bai and .md5, byte-equal to the JAX workflow's.
-  Its library halves are `aligner.Aligner` and `aligner.PairedAligner`.
+  Its library halves are `aligner.Aligner` and `aligner.PairedAligner`;
+  whole-genome references split into contig groups (`index.groups`,
+  `parallel.multi_index`), resident on the card or one group at a time.
+- `python -m isaac_aligner_tpu_torch sort-reference` builds the index
+  directory, with neighbor annotation on the card
+  (`index.neighbors_device`), in RAM or streaming, one index or contig
+  groups; `index.tools` and their subcommands handle bitmaps, merges,
+  reorders and packing.
 - Device code is plain torch ops on tensors, with one hand-written CUDA
   kernel: the banded Smith-Waterman of the gapped polish
   (`ops/csrc/banded_sw.cu`, built with nvcc on first use).
@@ -19,8 +26,9 @@ inputs.
   its plain torch version, which is what the CPU tests exercise.
 - The host modules are the port's own copies of the JAX package's, under
   the same module names and unchanged in behaviour (`dna`, `io.*`,
-  `index.build`, `align.{clippers,tls}`, `build.*`, `workflow.{output_proc,
-  stats_agg,reports}`, `utils.*`, `native/*.cpp`).  This package imports
+  `index.{build,groups,neighbors,tools}`, `align.{clippers,tls}`,
+  `build.*`, `workflow.{output_proc,stats_agg,reports}`, `utils.*`,
+  `native/*.cpp`).  This package imports
   neither jax nor anything of `isaac_aligner_tpu`, and this file imports
   no torch: the workflow's spawned output process imports only host
   modules.

@@ -231,25 +231,52 @@ def seed_table(read_len: int, cfg: AlignConfig) -> list[tuple[int, int]]:
 # Index upload
 # ---------------------------------------------------------------------------
 
+#: elements per host-to-device copy of an index plane: the host's transient
+#: copies stay this small however large the (memory-mapped) planes are
+UPLOAD_CHUNK = 1 << 26
+
+_TORCH_DTYPE = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+                np.dtype(np.uint8): torch.uint8}
+
+
+def _upload_plane(x, n_pad: int, fill: int, dtype: np.dtype,
+                  dev: torch.device) -> torch.Tensor:
+    """[n_pad] tensor on `dev` holding `x` then `fill`: preallocated on the
+    device, padding filled there, `x` copied in UPLOAD_CHUNK slices."""
+    out = torch.full((n_pad,), fill, dtype=_TORCH_DTYPE[np.dtype(dtype)],
+                     device=dev)
+    for lo in range(0, x.shape[0], UPLOAD_CHUNK):
+        hi = min(lo + UPLOAD_CHUNK, x.shape[0])
+        out[lo:hi].copy_(torch.from_numpy(np.array(x[lo:hi], dtype=dtype)))
+    return out
+
+
+def plane_bytes(index: SeedIndex) -> int:
+    """Device bytes of `prepare_index`'s planes for `index`: 13 B a padded
+    record (key_hi, key_lo and pos int32, the uint8 neighbor bit), the
+    packed genome and N-bit planes in their int64 carriers, and the bucket
+    table."""
+    n_pad = search.pad_pow2(max(index.num_records, 1))
+    g = index.genome.total_length
+    words = (-(-g // 16) + 2 * GP_PAD_WORDS) + (-(-g // 32) + 2 * GN_PAD_WORDS)
+    buckets = (1 << choose_bucket_width(index.num_records)) + 1
+    return 13 * n_pad + 8 * words + 4 * buckets
+
+
 def prepare_index(index: SeedIndex, device,
                   upload_codes: bool = False) -> IndexArrays:
     """Upload a host SeedIndex into padded planes on `device`.
 
-    upload_codes=False skips the raw uint8 codes plane: every device
-    consumer reads the packed planes, and cfg.genome_len (set by
+    Each record plane is allocated at its padded power-of-two length on the
+    device and filled from the (possibly memory-mapped) host plane in
+    slices.  upload_codes=False skips the raw uint8 codes plane: every
+    device consumer reads the packed planes, and cfg.genome_len (set by
     Aligner.create) carries the genome length."""
     dev = require_device(device)
     if index.key_mids:
         raise NotImplementedError(_NOT_PORTED_64)
     n = index.num_records
     n_pad = search.pad_pow2(max(n, 1))
-    pad = n_pad - n
-    key_hi = np.concatenate([index.key_hi, np.full(pad, _I32_MAX, np.int32)])
-    key_lo = np.concatenate([index.key_lo, np.full(pad, _I32_MAX, np.int32)])
-    pos = np.concatenate([index.pos, np.full(pad, TOO_MANY_POS, np.int32)])
-    nb = (index.has_neighbors if index.has_neighbors is not None
-          else np.zeros(n, np.uint8))
-    nb = np.concatenate([nb.astype(np.uint8), np.zeros(pad, np.uint8)])
     cached_planes = getattr(index, "_packed_planes", None)
     if cached_planes is not None:
         packed, nbits = cached_planes   # mmapped, saved by SeedIndex.save
@@ -259,18 +286,21 @@ def prepare_index(index: SeedIndex, device,
     contigs = index.genome.contigs
 
     def up(x, dtype):
-        return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+        return _upload_plane(x, len(x), 0, dtype, dev)
 
     return IndexArrays(
-        key_hi=up(key_hi, np.int32),
-        key_lo=up(key_lo, np.int32),
-        pos=up(pos, np.int32),
+        key_hi=_upload_plane(index.key_hi, n_pad, _I32_MAX, np.int32, dev),
+        key_lo=_upload_plane(index.key_lo, n_pad, _I32_MAX, np.int32, dev),
+        pos=_upload_plane(index.pos, n_pad, int(TOO_MANY_POS), np.int32, dev),
         n_real=n,
         genome=(up(index.genome.codes, np.uint8) if upload_codes
                 else torch.zeros(0, dtype=torch.uint8, device=dev)),
-        contig_starts=up([c.offset for c in contigs], np.int32),
-        contig_ends=up([c.end for c in contigs], np.int32),
-        has_neighbors=up(nb, np.uint8),
+        contig_starts=up(np.array([c.offset for c in contigs]), np.int32),
+        contig_ends=up(np.array([c.end for c in contigs]), np.int32),
+        has_neighbors=(
+            _upload_plane(index.has_neighbors, n_pad, 0, np.uint8, dev)
+            if index.has_neighbors is not None
+            else torch.zeros(n_pad, dtype=torch.uint8, device=dev)),
         genome_packed=up(packed, np.int64),
         genome_nbits=up(nbits, np.int64),
         bucket_starts=up(bucket_starts, np.int32),

@@ -63,6 +63,21 @@ def log_rest_of_genome_correction(genome_length: int, read_length: int) -> float
                  - np.log(4.0) * float(read_length))
 
 
+def mapping_quality_f64(best_log_prob, others_prob_sum, rog_correction):
+    """Host float64 MAPQ (numpy end to end; the cross-group merge of
+    `parallel/multi_index.py` re-derives it from summed masses):
+    -10 log10(neighborhood / (neighborhood + exp(best_lp)))."""
+    nb = np.asarray(rog_correction, np.float64) \
+        + np.asarray(others_prob_sum, np.float64)
+    p_best = np.exp(np.asarray(best_log_prob, np.float64))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = nb / (nb + p_best)
+        out = -10.0 * np.log10(np.maximum(frac, 1e-300))
+    # nb == p_best == 0 (no mass at all) -> maximal confidence is wrong;
+    # callers gate on aligned, return 0 for definiteness
+    return np.where(np.isfinite(out), out, 0.0)
+
+
 def scaled_masses(lp, valid, best_lp):
     """(total_scaled, p_best_scaled, m_safe): probability masses scaled
     by exp(-m), m = per-row max of the valid log probs (last axis)."""

@@ -13,6 +13,11 @@ semialigned clip, (pairs: overlapping-end clip).
 Batches run in order.  The JAX driver's single-buffer result packing, its
 fetch worker threads and its fixed-capacity rescue calls existed for the
 TPU link's per-fetch latency and static shapes, and are left behind.
+
+`create(..., defer_upload=True)` leaves the planes on the host until
+`ensure_uploaded()`; `release_device()` drops them and returns their
+memory to the card (group-major runs over contig-group references,
+`parallel/multi_index.py`).
 """
 
 from __future__ import annotations
@@ -106,7 +111,7 @@ def _with_bucket_log2(cfg: AlignConfig, index: SeedIndex) -> AlignConfig:
 @dataclasses.dataclass
 class Aligner:
     index: SeedIndex
-    arrays: IndexArrays
+    arrays: IndexArrays | None      # None while the planes are not uploaded
     cfg: AlignConfig
     device: torch.device
     # clipping options (reference defaults: AlignOptions.cpp:109,119-120)
@@ -130,13 +135,33 @@ class Aligner:
     def _t(self, key: str, dt: float) -> None:
         self.timings[key] = self.timings.get(key, 0.0) + dt
 
+    def ensure_uploaded(self) -> None:
+        """Upload the index planes to the device if they are not there;
+        the seconds it takes (to the end of the copies) add to
+        timings["upload"]."""
+        if self.arrays is None:
+            t0 = time.perf_counter()
+            self.arrays = prepare_index(self.index, self.device,
+                                        upload_codes=False)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._t("upload", time.perf_counter() - t0)
+
+    def release_device(self) -> None:
+        """Drop the device planes and return their memory to the card, so
+        that the next contig group's upload can take it."""
+        self.arrays = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     @staticmethod
     def create(index: SeedIndex, read_len: int | None = None,
                cfg: AlignConfig | None = None, *, device="cuda",
-               **opts) -> "Aligner":
+               defer_upload: bool = False, **opts) -> "Aligner":
         """Aligner on `device` ("cuda" by default, "cuda:N" or "cpu";
         "cuda" without a card raises, as do reads longer than the SW
-        kernel's `sw.MAX_LEN` on a card)."""
+        kernel's `sw.MAX_LEN` on a card).  With `defer_upload` the planes
+        stay on the host until `ensure_uploaded()`."""
         _check_read_len(read_len, device)
         dev = require_device(device)
         if cfg is None:
@@ -144,9 +169,9 @@ class Aligner:
                                            index.seed_len)
             cfg = AlignConfig(seed_len=index.seed_len, seed_offsets=offsets)
         cfg = _with_bucket_log2(cfg, index)
-        al = Aligner(index=index, cfg=cfg, device=dev,
-                     arrays=prepare_index(index, dev, upload_codes=False),
-                     **opts)
+        al = Aligner(index=index, cfg=cfg, device=dev, arrays=None, **opts)
+        if not defer_upload:
+            al.ensure_uploaded()
         # quality trim + semialigned clip run on the device
         al.cfg = dataclasses.replace(
             cfg, quality_trim_cutoff=al.base_quality_cutoff,
@@ -285,7 +310,7 @@ class PairedAligner:
     """
 
     index: SeedIndex
-    arrays: IndexArrays
+    arrays: IndexArrays | None      # None while the planes are not uploaded
     cfg: AlignConfig
     device: torch.device
     tls: TlsStatic = dataclasses.field(default_factory=TlsStatic)
@@ -317,13 +342,16 @@ class PairedAligner:
     rescue_calls: int = 0
 
     _t = Aligner._t
+    ensure_uploaded = Aligner.ensure_uploaded
+    release_device = Aligner.release_device
 
     @staticmethod
     def create(index: SeedIndex, read_len: int | None = None,
                cfg: AlignConfig | None = None, *, device="cuda",
-               **opts) -> "PairedAligner":
+               defer_upload: bool = False, **opts) -> "PairedAligner":
         """Paired aligner on `device` ("cuda" by default, "cuda:N" or
-        "cpu"; "cuda" without a card raises)."""
+        "cpu"; "cuda" without a card raises).  With `defer_upload` the
+        planes stay on the host until `ensure_uploaded()`."""
         _check_read_len(read_len, device)
         dev = require_device(device)
         if cfg is None:
@@ -331,9 +359,10 @@ class PairedAligner:
                                            index.seed_len)
             cfg = AlignConfig(seed_len=index.seed_len, seed_offsets=offsets)
         cfg = _with_bucket_log2(cfg, index)
-        al = PairedAligner(index=index, cfg=cfg, device=dev,
-                           arrays=prepare_index(index, dev, upload_codes=False),
+        al = PairedAligner(index=index, cfg=cfg, device=dev, arrays=None,
                            **opts)
+        if not defer_upload:
+            al.ensure_uploaded()
         # quality trim + semialigned clip run on the device; rescued
         # shadows get the host semialigned pass (they were unaligned when
         # the device clip ran)

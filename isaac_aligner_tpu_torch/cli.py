@@ -1,23 +1,80 @@
-"""Command-line interface of the port: the `align` subcommand.
+"""Command-line interface of the port.
 
-Port of the `align` subcommand of `isaac_aligner_tpu/cli.py` (reference
-bin/isaac-align, src/c++/bin/isaac-align.cpp:31-151) with the options the
-FASTQ paths run (single-end, and paired-end with -2), plus `--device`
-(default "cuda"):
+Port of `isaac_aligner_tpu/cli.py` (reference bin/isaac-align,
+src/c++/bin/isaac-align.cpp:31-151, and the bash script
+src/bash/bin/isaac-sort-reference): `sort-reference` with the JAX
+package's options, `align` with the options the FASTQ paths run
+(single-end, and paired-end with -2), both plus `--device` (default
+"cuda"), and the index tools `extract-neighbors`, `merge-references`,
+`reorder-reference`, `pack-reference` and `unpack-reference`:
 
+    python -m isaac_aligner_tpu_torch sort-reference -g ref.fa -o index_dir \\
+        [--device cuda|cpu] [--streaming] [--dont-annotate] ...
     python -m isaac_aligner_tpu_torch align -r index_dir|ref.fa \\
         -1 r1.fastq [-2 r2.fastq] -o out_dir [--device cuda|cpu] \\
         [--start-from State] ...
 
-The index directory comes from the JAX package's `sort-reference` (the
-same on-disk files); the port's own `sort-reference` waits for neighbor
-annotation (ROADMAP queue A items 6 and 11).
+`sort-reference` writes the same files as the JAX package's; a genome over
+`--group-limit` bases becomes one index per contig group plus a
+`multi-reference.json` manifest, which `align -r` takes as it is.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _cmd_sort_reference(args) -> int:
+    from .device import require_device
+    from .index.build import build_index, build_index_streaming
+    from .io.fasta import read_fasta
+
+    if not args.dont_annotate:
+        # the annotation's device must exist before any work
+        require_device(args.device)
+    genome = read_fasta(args.genome_file)
+    if genome.total_length > args.group_limit:
+        from .index.groups import build_grouped_indexes, split_genome_groups
+        try:
+            split_genome_groups(genome.contigs, limit=args.group_limit)
+        except ValueError as e:
+            # e.g. one contig alone exceeds the per-index address space
+            print(f"sort-reference: {e} (try a larger --group-limit)",
+                  file=sys.stderr)
+            return 2
+        dirs = build_grouped_indexes(
+            genome, args.output_directory, limit=args.group_limit,
+            seed_len=args.seed_length,
+            repeat_threshold=args.repeat_threshold,
+            annotate_neighbors=not args.dont_annotate,
+            streaming=args.streaming, mask_width=args.mask_width,
+            work_dir=args.temp_directory, device=args.device)
+        print(f"sorted reference: {len(dirs)} contig-group indexes "
+              f"(genome {genome.total_length} bp > group limit "
+              f"{args.group_limit}) -> {args.output_directory}")
+        return 0
+    if args.streaming:
+        index = build_index_streaming(
+            genome, args.output_directory, seed_len=args.seed_length,
+            repeat_threshold=args.repeat_threshold,
+            annotate_neighbors=not args.dont_annotate,
+            mask_width=args.mask_width, work_dir=args.temp_directory,
+            device=args.device)
+        print(f"sorted reference (streaming, mask-width {args.mask_width}): "
+              f"{index.num_records} records "
+              f"({index.collapsed_kmers} repeat k-mers collapsed) -> "
+              f"{args.output_directory}")
+        return 0
+    index = build_index(genome, seed_len=args.seed_length,
+                        repeat_threshold=args.repeat_threshold,
+                        annotate_neighbors=not args.dont_annotate,
+                        device=args.device)
+    index.save(args.output_directory)
+    print(f"sorted reference: {index.num_records} records "
+          f"({index.collapsed_kmers} repeat k-mers collapsed) -> "
+          f"{args.output_directory}")
+    return 0
 
 
 def _cmd_align(args) -> int:
@@ -105,9 +162,39 @@ def main(argv: list[str] | None = None) -> int:
                         "(equivalent to ISAAC_TPU_LOG=1)")
     sub = p.add_subparsers(dest="command", required=True)
 
+    sr = sub.add_parser("sort-reference",
+                        help="build the sorted k-mer index from FASTA")
+    sr.add_argument("-g", "--genome-file", required=True)
+    sr.add_argument("-o", "--output-directory", required=True)
+    sr.add_argument("--device", default="cuda",
+                    help="device of the neighbor annotation: cuda "
+                         "(default; fails without a card), cuda:N or cpu")
+    sr.add_argument("-s", "--seed-length", type=int, default=32,
+                    choices=(16, 32, 64),
+                    help="64 builds the true LongKmerType index (4 key "
+                         "planes; --streaming requires --dont-annotate)")
+    sr.add_argument("--repeat-threshold", type=int, default=1000)
+    sr.add_argument("--dont-annotate", action="store_true",
+                    help="skip the <=4-mismatch neighbor annotation "
+                         "(reference isaac-sort-reference --dont-annotate)")
+    sr.add_argument("--streaming", action="store_true",
+                    help="bounded-memory external-sort build (per-mask "
+                         "radix shards, reference SortReference.mk DAG)")
+    sr.add_argument("--mask-width", type=int, default=6,
+                    help="k-mer high bits for --streaming shard fan-out "
+                         "(reference isaac-sort-reference -w, default 6)")
+    sr.add_argument("--temp-directory", default=None,
+                    help="scratch dir for --streaming shard files")
+    sr.add_argument("--group-limit", type=int, default=2**31 - 1,
+                    help="per-index address-space limit; larger genomes "
+                         "build contig-group indexes + manifest "
+                         "(multi-reference.json) automatically")
+    sr.set_defaults(fn=_cmd_sort_reference)
+
     al = sub.add_parser("align", help="align FASTQ reads to a reference")
     al.add_argument("-r", "--reference", required=True,
-                    help="FASTA file or saved index directory")
+                    help="FASTA file, saved index directory or grouped "
+                         "directory; comma-separated for several")
     al.add_argument("-1", "--fastq1", default=None,
                     help="read-1 FASTQ, or a directory of "
                          "lane<N>_read<1|2>.fastq[.gz] files")
@@ -286,11 +373,93 @@ def main(argv: list[str] | None = None) -> int:
                     help="continue from the saved checkpoint state")
     al.set_defaults(fn=_cmd_align)
 
+    en = sub.add_parser("extract-neighbors",
+                        help="neighbor bitmap (+ optional wig) from an index")
+    en.add_argument("-i", "--index", required=True)
+    en.add_argument("-o", "--output", required=True, help=".npy bitmap path")
+    en.add_argument("--wig", default=None)
+    en.set_defaults(fn=_cmd_extract_neighbors)
+
+    mr = sub.add_parser("merge-references",
+                        help="merge indexes over disjoint contig sets")
+    mr.add_argument("-i", "--index", action="append", required=True)
+    mr.add_argument("-o", "--output-directory", required=True)
+    mr.set_defaults(fn=_cmd_merge_references)
+
+    rr = sub.add_parser("reorder-reference",
+                        help="reorder contigs into karyotype order")
+    rr.add_argument("-i", "--index", required=True)
+    rr.add_argument("-o", "--output-directory", required=True)
+    rr.add_argument("--order", required=True,
+                    help="comma-separated contig names")
+    rr.set_defaults(fn=_cmd_reorder_reference)
+
+    pk = sub.add_parser("pack-reference", help="tar.gz an index directory")
+    pk.add_argument("-i", "--index", required=True)
+    pk.add_argument("-o", "--output", required=True)
+    pk.set_defaults(fn=_cmd_pack_reference)
+
+    up = sub.add_parser("unpack-reference", help="extract a packed index")
+    up.add_argument("-i", "--input", required=True)
+    up.add_argument("-o", "--output-directory", required=True)
+    up.set_defaults(fn=_cmd_unpack_reference)
+
     args = p.parse_args(argv)
     if args.verbosity is not None:
         from .utils import tracing
         tracing.enable_logging(args.verbosity > 0)
     return args.fn(args)
+
+
+def _cmd_extract_neighbors(args) -> int:
+    import numpy as np
+
+    from .index.build import SeedIndex
+    from .index.tools import bitmap_to_wig, extract_neighbor_bitmap
+
+    index = SeedIndex.load(args.index)
+    bitmap = extract_neighbor_bitmap(index)
+    np.save(args.output, bitmap)
+    if args.wig:
+        bitmap_to_wig(bitmap, index.genome, args.wig)
+    print(f"neighbor bitmap: {int(np.unpackbits(bitmap).sum())} marked "
+          f"positions -> {args.output}")
+    return 0
+
+
+def _cmd_merge_references(args) -> int:
+    from .index.build import SeedIndex
+    from .index.tools import merge_indexes
+
+    merged = merge_indexes([SeedIndex.load(d) for d in args.index])
+    merged.save(args.output_directory)
+    print(f"merged {len(args.index)} indexes: {merged.num_records} records")
+    return 0
+
+
+def _cmd_reorder_reference(args) -> int:
+    from .index.build import SeedIndex
+    from .index.tools import reorder_reference
+
+    out = reorder_reference(SeedIndex.load(args.index),
+                            args.order.split(","))
+    out.save(args.output_directory)
+    print(f"reordered contigs: {[c.name for c in out.genome.contigs]}")
+    return 0
+
+
+def _cmd_pack_reference(args) -> int:
+    from .index.tools import pack_reference
+    pack_reference(args.index, args.output)
+    print(f"packed -> {args.output}")
+    return 0
+
+
+def _cmd_unpack_reference(args) -> int:
+    from .index.tools import unpack_reference
+    unpack_reference(args.input, args.output_directory)
+    print(f"unpacked -> {args.output_directory}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Sorted k-mer seed index: build, save and load (host, numpy)."""
+"""Sorted k-mer seed index: build, save and load, neighbor annotation,
+contig groups and index tools."""

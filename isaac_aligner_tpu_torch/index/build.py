@@ -17,14 +17,20 @@ on-disk ReferenceKmer record (src/c++/include/reference/ReferenceKmer.hh).
   TooManyMatch, src/c++/include/reference/ReferencePosition.hh:55-75).
 - Seed lengths 16 (key_lo == 0), 32 and 64 (two extra `key_mids`
   planes) build, save and load; the port's pipeline refuses 64-mer
-  indexes (ROADMAP queue A).  Neighbor annotation (`annotate_neighbors`)
-  and the streaming build are not ported yet.
+  indexes (ROADMAP queue A).
+- `annotate_neighbors` sets the per-record "has <=4-mismatch neighbors"
+  bit (`index/neighbors.py`; the device program runs on `device`, "cuda"
+  by default).
+- `build_index_streaming` is the bounded-memory external radix build,
+  byte-identical to `build_index` + `save`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -186,12 +192,15 @@ def build_index(
     genome: Genome,
     seed_len: int = 32,
     repeat_threshold: int = 1000,
+    annotate_neighbors: bool = False,
+    device="cuda",
 ) -> SeedIndex:
     """Build the sorted (k-mer, position) index over all contigs.
 
     Vectorized host build. Excluded windows: any containing an ambiguous
     base, and any crossing a contig boundary (reference excludes these the
-    same way by streaming per-contig).
+    same way by streaming per-contig).  `annotate_neighbors` runs the
+    neighbor annotation on `device`.
     """
     if seed_len not in (16, 32, 64):
         raise ValueError("seed_len must be 16, 32 or 64")
@@ -251,7 +260,7 @@ def build_index(
         out_pos = positions
         collapsed = 0
 
-    return SeedIndex(
+    index = SeedIndex(
         seed_len=seed_len,
         repeat_threshold=repeat_threshold,
         genome=genome,
@@ -262,3 +271,220 @@ def build_index(
         total_kmers=total,
         collapsed_kmers=collapsed,
     )
+    if annotate_neighbors:
+        from .neighbors import annotate_index
+        index.has_neighbors = annotate_index(
+            index.key_hi, index.key_lo, k=seed_len,
+            key_mids=tuple(index.key_mids), device=device).astype(np.uint8)
+    return index
+
+
+# ---------------------------------------------------------------------------
+# Bounded-memory streaming build (human-scale hosts)
+# ---------------------------------------------------------------------------
+
+def _raw_to_npy(raw_path: Path, npy_path: Path, dtype: np.dtype) -> int:
+    """Wrap a raw little-endian array file into .npy format by prefixing the
+    header and streaming the payload across; returns the element count."""
+    itemsize = np.dtype(dtype).itemsize
+    nbytes = raw_path.stat().st_size
+    assert nbytes % itemsize == 0
+    n = nbytes // itemsize
+    with open(npy_path, "wb") as out:
+        np.lib.format.write_array_header_1_0(
+            out, {"descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+                  "fortran_order": False, "shape": (n,)})
+        with open(raw_path, "rb") as src:
+            shutil.copyfileobj(src, out, length=1 << 22)
+    return int(n)
+
+
+def _chunk_windows_arrays(codes: np.ndarray, contigs, seed_len: int,
+                          start: int, stop: int):
+    """(key words outer->inner, pos) of all valid seed windows with start
+    in [start, stop).  Words: (hi, lo) for 16/32-mers, (hi, m1, m2, lo)
+    for the 64-mer LongKmerType index."""
+    span = codes[start : stop + seed_len - 1]
+    n_local = stop - start
+    is_n = (span >= dna.NUM_BASES).astype(np.int32)
+    cs = np.concatenate([np.zeros(1, np.int32), np.cumsum(is_n, dtype=np.int32)])
+    valid = (cs[seed_len : seed_len + n_local] - cs[:n_local]) == 0
+    for c in contigs:
+        tail_start = max(c.offset, c.end - seed_len + 1)
+        lo_b, hi_b = max(tail_start, start), min(c.end, stop)
+        if lo_b < hi_b:
+            valid[lo_b - start : hi_b - start] = False
+    local = np.nonzero(valid)[0]
+    pos = (local + start).astype(np.int32)
+    n_words = max(seed_len // 16, 2)
+    words = [_rolling_kmers_u32(span, 16 * w, 16, n_local)[local]
+             if 16 * (w + 1) <= seed_len else
+             np.zeros(local.shape[0], np.uint32)
+             for w in range(n_words)]
+    return words, pos
+
+
+def build_index_streaming(
+    genome: Genome,
+    out_dir: str | Path,
+    seed_len: int = 32,
+    repeat_threshold: int = 1000,
+    annotate_neighbors: bool = False,
+    mask_width: int = 6,
+    chunk_windows: int = 1 << 24,
+    work_dir: str | Path | None = None,
+    device="cuda",
+) -> SeedIndex:
+    """Bounded-memory index build: external radix sort over k-mer mask bits.
+
+    Reference analog: the per-mask shard build DAG — isaac-sort-reference
+    drives 2^maskWidth independent sortReference runs (default maskWidth=6,
+    src/make/reference/SortReference.mk:54-84; ReferenceSorter filters the
+    genome stream by the k-mer's high mask bits,
+    src/c++/lib/reference/ReferenceSorter.cpp:104-176). Same sharding axis
+    here, recomposed as a two-pass external sort so one process stays within
+    bounded RAM instead of 2^maskWidth genome re-scans:
+
+    1. **Partition pass** — scan the genome in ``chunk_windows`` slabs,
+       pack (hi, lo, pos) records for valid windows, append each record to
+       its mask bucket file (bucket = top ``mask_width`` bits of the k-mer).
+    2. **Per-bucket sort pass** — ascending over buckets: load one bucket
+       (~1/2^mask_width of the genome), lexsort by (hi, lo, pos), collapse
+       k-mers over ``repeat_threshold`` into one TOO_MANY_POS record
+       (identical logic to :func:`build_index`), stream results to the
+       final record planes.
+
+    Because a bucket is a prefix of the sort key, bucket-ascending
+    concatenation IS the global sort order and no k-mer group spans a
+    bucket boundary — output is byte-identical to :func:`build_index`.
+
+    Peak RAM: one genome byte-plane + one chunk (~12B/window) + one sorted
+    bucket (~total/2^mask_width records). The finished index is written to
+    ``out_dir`` in the standard save() layout; the returned SeedIndex holds
+    memory-mapped planes.  `annotate_neighbors` runs the bounded-RAM
+    annotation, on `device` for indexes it holds in RAM.
+    """
+    if seed_len not in (16, 32, 64):
+        raise ValueError("seed_len must be 16, 32 or 64")
+    if annotate_neighbors and seed_len == 64:
+        raise ValueError(
+            "neighbor annotation supports 16/32-mer indexes (64-mer "
+            "mode: pass --dont-annotate)")
+    codes = genome.codes
+    g = codes.shape[0]
+    if g >= 2**31:
+        raise ValueError("single index shard addresses < 2^31 bases; shard the genome")
+    n_windows = g - seed_len + 1
+    if n_windows <= 0:
+        raise ValueError("genome shorter than seed length")
+    if not (0 < mask_width <= 16):
+        raise ValueError("mask_width must be in (0, 16]")
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    n_buckets = 1 << mask_width
+    shift = np.uint32(32 - mask_width)
+    n_words = max(seed_len // 16, 2)
+    plane_names = (["key_hi"] + [f"key_m{i}" for i in range(1, n_words - 1)]
+                   + ["key_lo"])
+
+    with tempfile.TemporaryDirectory(
+            dir=str(work_dir) if work_dir else None) as tmp_name:
+        tmp = Path(tmp_name)
+        bucket_paths = [tmp / f"bucket_{m:05d}.bin" for m in range(n_buckets)]
+        # -- pass 1: chunked scan, radix partition by mask bits ------------
+        # bucket files open in append mode per chunk (not held across the
+        # whole pass): at mask_width 16 the 65536 simultaneous handles +
+        # stdio buffers would blow both ulimit -n and the memory bound
+        for start in range(0, n_windows, chunk_windows):
+            stop = min(start + chunk_windows, n_windows)
+            words, pos = _chunk_windows_arrays(codes, genome.contigs,
+                                               seed_len, start, stop)
+            if pos.shape[0] == 0:
+                continue
+            bucket = (words[0] >> shift).astype(np.int64)
+            order = np.argsort(bucket, kind="stable")
+            recs = np.empty((pos.shape[0], n_words + 1), dtype=np.uint32)
+            for i, w in enumerate(words):
+                recs[:, i] = w[order]
+            recs[:, n_words] = pos[order].view(np.uint32)
+            bounds = np.searchsorted(bucket[order], np.arange(n_buckets + 1))
+            for m in range(n_buckets):
+                b, e = bounds[m], bounds[m + 1]
+                if e > b:
+                    with open(bucket_paths[m], "ab") as f:
+                        f.write(recs[b:e].tobytes())
+
+        # -- pass 2: per-bucket sort + repeat collapse -> raw planes -------
+        raw = {name: tmp / f"{name}.raw" for name in plane_names + ["pos"]}
+        total = 0
+        collapsed = 0
+        files = {name: open(rp, "wb") for name, rp in raw.items()}
+        try:
+            for m in range(n_buckets):
+                p = bucket_paths[m]
+                if not p.exists() or p.stat().st_size == 0:
+                    continue
+                arr = np.fromfile(p, dtype=np.uint32).reshape(-1, n_words + 1)
+                p.unlink()
+                words = [arr[:, i] for i in range(n_words)]
+                pos = arr[:, n_words].view(np.int32)
+                order = np.lexsort((pos, *reversed(words)))
+                words = [w[order] for w in words]
+                pos = pos[order]
+                n = pos.shape[0]
+                total += n
+                new_group = np.empty(n, dtype=bool)
+                new_group[0] = True
+                diff = words[0][1:] != words[0][:-1]
+                for w in words[1:]:
+                    diff = diff | (w[1:] != w[:-1])
+                new_group[1:] = diff
+                group_id = np.cumsum(new_group) - 1
+                counts = np.bincount(group_id)
+                too_many = counts > repeat_threshold
+                keep = ~too_many[group_id]
+                sentinel = new_group & too_many[group_id]
+                out_mask = keep | sentinel
+                out_pos = np.where(sentinel[out_mask], TOO_MANY_POS,
+                                   pos[out_mask]).astype(np.int32)
+                for name, w in zip(plane_names, words):
+                    files[name].write(bias_u32_to_i32(w[out_mask]).tobytes())
+                files["pos"].write(out_pos.tobytes())
+                collapsed += int(too_many.sum())
+        finally:
+            for f in files.values():
+                f.close()
+
+        for name, rp in raw.items():
+            _raw_to_npy(rp, out / f"{name}.npy", np.int32)
+    np.save(out / "genome.npy", codes)
+    meta = {
+        "format_version": 1,
+        "seed_len": seed_len,
+        "repeat_threshold": repeat_threshold,
+        "total_kmers": total,
+        "collapsed_kmers": collapsed,
+        "contigs": [
+            {"index": c.index, "name": c.name, "offset": c.offset,
+             "length": c.length, "md5": c.md5}
+            for c in genome.contigs
+        ],
+    }
+    (out / "sorted-reference.json").write_text(json.dumps(meta, indent=2))
+
+    index = SeedIndex.load(out, mmap=True)
+    if annotate_neighbors:
+        from ..utils import tracing
+        from .neighbors import annotate_index_chunked
+        tracing.log("streaming build: neighbor annotation runs per prefix "
+                    "partition (bounded RAM); pass --dont-annotate to skip")
+        bits = annotate_index_chunked(
+            index.key_hi, index.key_lo, k=seed_len,
+            out_path=out / "neighbors.npy", work_dir=work_dir, device=device)
+        if isinstance(bits, np.memmap):
+            bits.flush()        # already written straight to neighbors.npy
+        else:
+            np.save(out / "neighbors.npy", bits)
+        index.has_neighbors = bits
+    return index

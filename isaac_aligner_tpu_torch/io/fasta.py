@@ -55,6 +55,9 @@ class Genome:
         idx = int(np.searchsorted(self.contig_offsets, global_pos, side="right")) - 1
         return self.contigs[idx]
 
+    def slice(self, global_pos: int, length: int) -> np.ndarray:
+        return self.codes[global_pos : global_pos + length]
+
     def to_local(self, global_pos: int) -> tuple[str, int]:
         """Global 0-based position -> (contig name, 0-based local position)."""
         c = self.contig_of(global_pos)

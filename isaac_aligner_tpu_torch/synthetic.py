@@ -104,6 +104,25 @@ def _reads_at(rng: np.random.Generator, codes: np.ndarray,
     return reads, indel
 
 
+def planted_kmers(rng: np.random.Generator, n: int, k: int) -> tuple:
+    """Up to `n` unique random k-mers as unbiased uint32 word planes (most
+    significant first, 16 bases a word) where every other one is a
+    1-4 base mutation of its predecessor: a neighbor annotation input
+    with known neighbors."""
+    n_words = max(1, 2 * k // 32)
+    bits = 2 * k // n_words
+    bases_per_word = k // n_words
+    w = rng.integers(0, 1 << bits, (n, n_words), dtype=np.uint64)
+    for i in range(0, n - 1, 2):
+        w[i + 1] = w[i]
+        for _ in range(int(rng.integers(1, 5))):
+            word, off = divmod(int(rng.integers(0, k)), bases_per_word)
+            w[i + 1, word] ^= np.uint64(rng.integers(1, 4)) << np.uint64(
+                bits - 2 - 2 * off)
+    w = np.unique(w.astype(np.uint32), axis=0)
+    return tuple(w[:, j] for j in range(n_words))
+
+
 @dataclasses.dataclass
 class SimPairs:
     bases1: np.ndarray     # uint8 [N, L] read 1 as sequenced

@@ -18,6 +18,13 @@ same inputs.
           -> BamDone      per bin: coordinate sort, duplicate marking,
                           known-gap realignment; BGZF BAM + .bai + .md5
 
+The reference is a saved index directory, a FASTA (built in memory; one
+over `group_limit` bases splits into contig groups), a grouped directory
+from `sort-reference` (`multi-reference.json`), or comma-separated entries
+of these.  More than one index aligns through `parallel/multi_index.py`
+with every group's planes on the card, or group-major (one group at a
+time) when the planes exceed `device_memory_budget`.
+
 Options of the JAX workflow that select a path this slice does not run
 raise NotImplementedError naming their ROADMAP item (`check_ported`); none
 of them quietly takes another path.  The aligner runs on `device` ("cuda" by
@@ -28,13 +35,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 
 from ..align.pairs import TlsStatic
-from ..align.pipeline import AlignConfig, default_seed_offsets
+from ..align.pipeline import AlignConfig, default_seed_offsets, plane_bytes
 from ..aligner import Aligner, PairedAligner
 from ..build.storage import DistributionBinStore
 from ..device import require_device
@@ -43,6 +51,52 @@ from ..io import sam
 from ..io.fasta import read_fasta
 
 STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
+
+#: The device bytes a batch holds beside the index planes at its peak, for
+#: a batch of `templates` (single-end reads, or pairs) of `read_len`
+#: bases a read against `groups` resident contig groups:
+#:
+#:     WS_FIXED + templates * (
+#:         WS_TEMPLATE + WS_TEMPLATE_PER_BASE * read_len
+#:         + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len))
+#:
+#: (each further group's dispatched outputs stay alive until the batch's
+#: last group is finished; WS_FIXED holds what does not grow with the
+#: batch, such as the rescue's capped chunks).  Fitted by
+#: `scripts/torch_working_set.py` as an upper envelope of
+#: torch.cuda.max_memory_allocated less the planes, single-end and paired,
+#: at 100, 150 and 251 bp, 4,096 to 65,536 templates, one index and two
+#: groups, on an H100 80GB HBM3 at 700 W (each constant rounded up).  A
+#: template takes about as much as a pair's two ends (16.5 kB a 100 bp
+#: read, 17.7 kB a 100 bp pair).
+WS_FIXED = 265_478_784
+WS_TEMPLATE = 6_437
+WS_TEMPLATE_PER_BASE = 117
+WS_GROUP = 640
+WS_GROUP_PER_BASE = 1
+
+
+def batch_working_set(templates: int, read_len: int, groups: int) -> int:
+    """Device bytes a batch needs beside the planes (the model above)."""
+    return WS_FIXED + templates * (
+        WS_TEMPLATE + WS_TEMPLATE_PER_BASE * read_len
+        + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len))
+
+
+def device_memory_budget(device, templates: int, read_len: int,
+                         groups: int) -> int:
+    """Bytes of index planes that `device` can hold beside a batch of
+    `templates` reads or pairs of `read_len` bases against `groups`
+    resident groups: on a card, its free memory (torch.cuda.mem_get_info)
+    less the batch's working set; on the CPU, the host's physical
+    memory."""
+    import torch
+
+    dev = require_device(device)
+    if dev.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(dev)
+        return free - batch_working_set(templates, read_len, groups)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def parse_tls_override(spec: str) -> TlsStatic:
@@ -214,9 +268,6 @@ def check_ported(opts: WorkflowOptions) -> None:
         refuse(f"--devices {opts.devices} (SPMD)", 7)
     if opts.dist_processes > 1:
         refuse("multi-host runs", 7)
-    ref = Path(str(opts.reference))
-    if "," in str(opts.reference) or (ref / "multi-reference.json").exists():
-        refuse("contig-group (multi-index) references", 5)
 
 
 class AlignWorkflow:
@@ -230,7 +281,7 @@ class AlignWorkflow:
             d.mkdir(parents=True, exist_ok=True)
         self.state = "Start"
         self.tls: TlsStatic | None = None
-        self._index: SeedIndex | None = None
+        self._index: list[SeedIndex] | None = None
         self._stats: dict = {}
         self._bin_cache = None
 
@@ -272,26 +323,50 @@ class AlignWorkflow:
                 self.tls, mate_min=self.tls.median - d,
                 mate_max=self.tls.median + d)
 
-    def _load_index(self) -> SeedIndex:
-        """The saved index directory, or an index built from the FASTA."""
+    def _load_indexes(self) -> list[SeedIndex]:
+        """One index per comma-separated --reference entry; a grouped
+        directory gives its groups (memory-mapped), a FASTA over
+        `group_limit` bases one index per contig group."""
         if self._index is None:
-            ref = Path(self.opts.reference)
-            if ref.is_dir():
-                self._index = SeedIndex.load(ref)
-            else:
-                genome = read_fasta(ref)
-                if genome.total_length > self.opts.group_limit:
-                    raise NotImplementedError(
-                        "contig-group (multi-index) references are not "
-                        "ported to isaac_aligner_tpu_torch yet (ROADMAP "
-                        "queue A item 5)")
-                # 64-mer seeds search a 32-mer index + extension verify
-                self._index = build_index(
-                    genome, seed_len=min(self.opts.seed_len, 32))
+            from ..index.groups import (is_grouped_reference,
+                                        load_grouped_indexes,
+                                        split_genome_groups, subset_genome)
+            indexes = []
+            for part in str(self.opts.reference).split(","):
+                ref = Path(part)
+                if ref.is_dir() and is_grouped_reference(ref):
+                    # memory-mapped: a group's pages stream through the
+                    # page cache during its upload instead of living in RSS
+                    indexes.extend(load_grouped_indexes(ref, mmap=True))
+                elif ref.is_dir():
+                    indexes.append(SeedIndex.load(ref))
+                else:
+                    genome = read_fasta(ref)
+                    groups = split_genome_groups(genome.contigs,
+                                                 limit=self.opts.group_limit)
+                    # 64-mer seeds search a 32-mer index + extension verify
+                    sl = min(self.opts.seed_len, 32)
+                    if len(groups) == 1:
+                        indexes.append(build_index(genome, seed_len=sl))
+                    else:
+                        indexes.extend(
+                            build_index(subset_genome(genome, names),
+                                        seed_len=sl)
+                            for names in groups)
+            self._index = indexes
         return self._index
 
+    def _load_index(self) -> SeedIndex:
+        return self._load_indexes()[0]
+
     def _genome(self):
-        return self._load_index().genome
+        """The (combined) genome for the output phases: positions of a
+        multi-index run are global over the concatenated groups."""
+        idxs = self._load_indexes()
+        if len(idxs) == 1:
+            return idxs[0].genome
+        from ..parallel.multi_index import _combined_genome
+        return _combined_genome([ix.genome for ix in idxs])
 
     @property
     def _paired(self) -> bool:
@@ -323,13 +398,16 @@ class AlignWorkflow:
             self.tls = None
             return
         # learning runs score_end only: the clip and polish options of the
-        # align phase do not enter it
-        index = self._load_index()
+        # align phase do not enter it.  It runs on the largest contig group
+        # (TLS is a library property) and frees the card for the align phase
+        index = max(self._load_indexes(),
+                    key=lambda ix: ix.genome.total_length)
         read_len = learn[0][0].read_len
         aligner = PairedAligner.create(
             index, read_len=read_len, cfg=self._align_config(read_len, index),
             device=self.opts.device)
         self.tls = aligner.learn_tls(learn)
+        aligner.release_device()
         self._apply_mate_drift()
         self._stats["tls"] = dataclasses.asdict(self.tls)
 
@@ -380,6 +458,7 @@ class AlignWorkflow:
         from .stats_agg import tile_agg
 
         index = self._load_index()
+        indexes = self._load_indexes()
         t0 = time.time()
         o = self.opts
         stream = self._batch_stream()
@@ -416,15 +495,39 @@ class AlignWorkflow:
                       gapped_mismatches=o.gapped_mismatches,
                       semialigned_gap_limit=o.semialigned_gap_limit,
                       avoid_smith_waterman=o.avoid_smith_waterman)
-        if paired:
-            aligner = PairedAligner.create(
-                index, clip_overlapping=o.clip_overlapping,
-                pessimistic_mapq=o.pessimistic_mapq,
-                shadow_scan_range=o.shadow_scan_range, **common)
-            if self.tls is not None:
-                aligner.tls = self.tls
+        paired_kw = dict(clip_overlapping=o.clip_overlapping,
+                         pessimistic_mapq=o.pessimistic_mapq,
+                         shadow_scan_range=o.shadow_scan_range)
+        groups = None
+        if len(indexes) > 1:
+            from ..parallel.multi_index import (MultiIndexAligner,
+                                                MultiIndexPairedAligner)
+            from ..utils import tracing
+            # beyond the card's memory: one group's planes resident at a
+            # time (parallel/multi_index._group_major_many)
+            need = sum(plane_bytes(ix) for ix in indexes)
+            budget = device_memory_budget(o.device, o.batch_size, read_len,
+                                          len(indexes))
+            gm = need > budget
+            if gm:
+                tracing.log(
+                    f"multi-index: {need / 1e9:.2f} GB of index planes > "
+                    f"{budget / 1e9:.2f} GB budget on {o.device}: "
+                    f"group-major (one group resident at a time)",
+                    force=True)
+            if paired:
+                aligner = MultiIndexPairedAligner.create(
+                    indexes, group_major=gm, **paired_kw, **common)
+            else:
+                aligner = MultiIndexAligner.create(indexes, group_major=gm,
+                                                   **common)
+            groups = aligner.aligners
+        elif paired:
+            aligner = PairedAligner.create(index, **paired_kw, **common)
         else:
             aligner = Aligner.create(index, **common)
+        if paired and self.tls is not None:
+            aligner.tls = self.tls
 
         records_per_bin = self._records_per_bin(read_len)
         self._stats["records_per_bin"] = records_per_bin
@@ -562,6 +665,15 @@ class AlignWorkflow:
         stats["device_work"] = {k: getattr(aligner, k) for k in
                                 ("sw_pairs", "rescue_rows", "rescue_calls")
                                 if hasattr(aligner, k)}
+        if groups is not None:
+            # per contig group: its records, the device bytes of its planes
+            # and the seconds its uploads took
+            stats["groups"] = [
+                {"records": a.index.num_records,
+                 "plane_bytes": plane_bytes(a.index),
+                 "upload_seconds": round(a.timings.get("upload", 0.0), 3)}
+                for a in groups]
+            stats["group_major"] = aligner.group_major
         stats["mapq_hist"] = [int(x) for x in stats["mapq_hist"]]
         for k in ("total_reads", "aligned", "perfect", "proper_pairs"):
             stats[k] = int(stats[k])

@@ -185,7 +185,8 @@ def test_port_runs_without_jax(tmp_path):
     """What the GPU machine sees: neither jax nor the JAX package.  The
     library slice and the workflow (FASTQ -> sorted BAM, single-end and
     paired-end, with its spawned output process, which re-runs this
-    script's top) run on cpu."""
+    script's top) run on cpu, and the paired workflow again against a
+    two-group reference from the port's sort-reference, group-major."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -242,6 +243,27 @@ def test_port_runs_without_jax(tmp_path):
             pe = read_bam(d / "pe" / "sorted.bam")[2]
             assert len(pe) == 96
             assert sum(r.flag & 0x2 != 0 for r in pe) >= 72
+            # a contig-group reference from the port's own sort-reference,
+            # annotated on the cpu, aligned group-major and resident
+            from isaac_aligner_tpu_torch.cli import main as cli
+            from isaac_aligner_tpu_torch.workflow import align as wfmod
+            with open(d / "ref.fa", "w") as f:
+                for i, lo in enumerate((0, 10_000)):
+                    s = "".join("ACGTN"[x]
+                                for x in genome.codes[lo:lo + 10_000])
+                    f.write(f">sim{i}\\n{s}\\n")
+            assert cli(["sort-reference", "-g", str(d / "ref.fa"), "-o",
+                        str(d / "gidx"), "--group-limit", "12000",
+                        "--device", "cpu"]) == 0
+            wfmod.device_memory_budget = lambda *_: 0
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "gidx"), output_dir=str(d / "grp"),
+                fastq1=str(d / "p1.fq"), fastq2=str(d / "p2.fq"),
+                batch_size=32, device="cpu")).run()
+            grp = read_bam(d / "grp" / "sorted.bam")[2]
+            assert len(grp) == 96
+            assert {r.rname for r in grp if r.is_mapped} == {"sim0", "sim1"}
+            assert sum(r.flag & 0x2 != 0 for r in grp) >= 72
             loaded = {m.split(".")[0] for m in sys.modules
                       if sys.modules[m] is not None}
             assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded

@@ -186,3 +186,98 @@ def test_paired_aligner_card_equals_cpu(cuda_device):
     assert dq.max() <= 1 and (dq > 0).sum() <= 0.005 * len(dq)
     proper = np.array([r.flag & 0x2 != 0 for r in gpu])
     assert proper.mean() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_neighbor_annotation_card_equals_cpu(cuda_device, k):
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.index.neighbors_device import \
+        find_neighbors_device
+
+    planes = synthetic.planted_kmers(np.random.default_rng(k), 20_000, k)
+    got = find_neighbors_device(planes, k, device=cuda_device)
+    want = find_neighbors_device(planes, k, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert want.sum() > 5_000
+
+
+def _grouped_fixture():
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.index.groups import (split_genome_groups,
+                                                      subset_genome)
+
+    rng = np.random.default_rng(5)
+    genome = synthetic.make_genome(rng, 400_000, families=((600, 20, 0.02),),
+                                   n_island=(250_000, 500), n_contigs=4)
+    indexes = [build_index(subset_genome(genome, names), seed_len=32,
+                           annotate_neighbors=True, device="cpu")
+               for names in split_genome_groups(genome.contigs, 200_000)]
+    return genome, indexes, synthetic.make_pairs(rng, genome.codes, 1024,
+                                                 far_min=50_000)
+
+
+@pytest.mark.cuda
+def test_grouped_aligner_card_equals_cpu(cuda_device):
+    """Two contig groups: the paired multi-index aligner on the card
+    against the CPU, resident and group-major, with the banded SW kernel
+    launched at most once per end per group."""
+    from isaac_aligner_tpu_torch.align.pairs import TlsStatic
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch
+    from isaac_aligner_tpu_torch.parallel.multi_index import \
+        MultiIndexPairedAligner
+
+    _genome, indexes, sp = _grouped_fixture()
+    assert len(indexes) == 2
+    names = [f"t{i}" for i in range(1024)]
+
+    def batches():
+        return tuple(ReadBatch(names=names, bases=b.copy(),
+                               quals=np.full(b.shape, 30, np.uint8),
+                               lengths=np.full(1024, 100, np.int32))
+                     for b in (sp.bases1, sp.bases2))
+
+    tls = TlsStatic(min=150, max=500, mate_min=150, mate_max=500, best0=1,
+                    best1=6, median=300)
+    out = {}
+    for dev, gm in ((cuda_device, False), (cuda_device, True), ("cpu", False)):
+        al = MultiIndexPairedAligner.create(indexes, read_len=100,
+                                            device=dev, group_major=gm)
+        al.tls = tls
+        before = sw.banded_sw.launches
+        res = [r for _b, r in al.align_results_many([batches()])][0]
+        out[(str(dev), gm)] = (res, sw.banded_sw.launches - before)
+    (g, n_g), (gm_res, n_gm), (c, n_c) = out.values()
+    assert n_g == n_gm and 2 <= n_g <= 4 and n_c == 0
+    for k in ("aligned_1", "aligned_2", "start_1", "start_2", "reverse_1",
+              "reverse_2", "proper_pair", "edit_distance_1",
+              "edit_distance_2"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+        np.testing.assert_array_equal(gm_res[k], g[k], err_msg=k)
+    assert g["cigar_1"] == c["cigar_1"] and g["cigar_2"] == c["cigar_2"]
+    for k in ("frag_score_1", "frag_score_2", "template_score"):
+        d = np.abs(g[k].astype(np.int64) - c[k].astype(np.int64))
+        assert d.max() <= 1 and (d > 0).sum() <= 0.005 * d.size, k
+    assert g["proper_pair"].mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_release_device_returns_memory(cuda_device):
+    """Each group's planes come and go: memory_allocated is back at its
+    baseline after every release_device."""
+    from isaac_aligner_tpu_torch.aligner import Aligner
+    from isaac_aligner_tpu_torch.align.pipeline import plane_bytes
+
+    _genome, indexes, _sp = _grouped_fixture()
+    aligners = [Aligner.create(ix, read_len=100, device=cuda_device,
+                               defer_upload=True) for ix in indexes]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    for al, ix in zip(aligners, indexes):
+        al.ensure_uploaded()
+        held = torch.cuda.memory_allocated(cuda_device) - base
+        assert held >= plane_bytes(ix) - 4096, (held, plane_bytes(ix))
+        al.release_device()
+        assert al.arrays is None
+        assert torch.cuda.memory_allocated(cuda_device) == base

@@ -1,7 +1,8 @@
 """Port's single-end AlignWorkflow vs the JAX AlignWorkflow, FASTQ to sorted
 BAM on the CPU: sorted.bam, .bai and .md5 byte-equal in every case, equal
 stats counts, resume, batch-size invariance, the CLI, the refusals of what
-is not ported, and the default device."""
+is not ported, and the default device.  Contig-group references are in
+`tests/test_torch_groups.py`."""
 
 import dataclasses
 import json
@@ -222,9 +223,8 @@ def test_options_match_jax_plus_device():
     ({"sample_sheet": "sheet.csv"}, 10),
     ({"devices": 2}, 7),
     ({"dist_processes": 2}, 7),
-    ({"reference": "a.fa,b.fa"}, 5),
 ], ids=["run_folder", "bam_input", "sample_sheet", "devices2",
-        "multi_host", "grouped_reference"])
+        "multi_host"])
 def test_unported_options_raise(inputs, tmp_path, kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue A item {item}"):
