@@ -66,14 +66,30 @@ their path against its plain torch version.  Phases, one line each:
  11. grouped paired workflow: 262,144 pairs on the eight contigs, resident,
      checked as phase 7, banded_sw checked and timed at its mean pairs per
      launch; then the first 4,096 pairs group-major on the card and on the
-     CPU give the same TLS and core fields.
+     CPU give the same TLS and core fields;
+ 12. 64-mer index: `sort-reference -s 64` of phase 4's genome as one index
+     on the card (planes and neighbor bits held against an in-memory build
+     and annotation, whose seconds and flagged share it prints); phase 5's
+     524,288 reads through AlignWorkflow with -s 64 against it, batch
+     32,768: >= 0.95 of the reads with an exact, N-free 64-mer seed window
+     aligned and >= 0.95 of the aligned within 8 bp of the truth; the
+     working set beside the planes against the model; banded_sw at the
+     run's mean pairs per launch; the first 4,096 reads on the card and on
+     the CPU give the same core fields;
+ 13. the seed options on the 32-mer index: phase 7's 262,144 pairs through
+     the paired workflow with --neighborhood-size-threshold 100
+     --scatter-repeats 1, checked as phase 7, with the working set and
+     banded_sw as phase 12; one 32,768-read library batch with the
+     threshold, whose seed stage reports neighbor hits (> 0); and card vs
+     CPU on 4,096 reads or pairs for each option alone (-s 64 over the
+     FASTA, the threshold, --scatter-repeats single-end and paired).
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
 Then one JSON line of kernel results (launches: the workflows' runs of
-phases 5, 7, 10 and 11), the card line, and the last line {"ok": true,
-"device": {...}}.
+phases 5, 7, 10, 11, 12 and 13), the card line, and the last line {"ok":
+true, "device": {...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
 
@@ -100,7 +116,10 @@ if __name__ != "__mp_main__":
 
     from isaac_aligner_tpu_torch import synthetic
     from isaac_aligner_tpu_torch.align import pairs
-    from isaac_aligner_tpu_torch.align.pipeline import plane_bytes
+    from isaac_aligner_tpu_torch.align.pipeline import (AlignConfig,
+                                                        default_seed_offsets,
+                                                        find_seed_hits,
+                                                        plane_bytes)
     from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner
     from isaac_aligner_tpu_torch.index.build import (SeedIndex, build_index,
                                                      unbias_i32_to_u32)
@@ -133,6 +152,7 @@ N_CONTIGS = 8               # phases 9-11: the genome as eight contigs
 GROUP_LIMIT = 2_400_000     # two groups of four 575 kbp contigs
 GM_SUBSET = 32_768          # reads run resident and group-major (phase 10)
 PLANTED = 20_000            # planted k-mers of the annotation check
+NB_THRESHOLD = 100          # phase 13's --neighborhood-size-threshold
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
 
@@ -282,7 +302,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/11] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/13] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -337,7 +357,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/11] slice: {genome.total_length} bp genome, "
+    print(f"[4/13] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -361,7 +381,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/11] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/13] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -371,13 +391,13 @@ def phase_slice(args, dev, card: str, tmp: Path):
 
 
 def run_workflow(index_dir: Path, fastq: Path, out: Path, device: str,
-                 batch: int, fastq2: Path | None = None) -> dict:
-    """AlignWorkflow at its defaults; returns the run's Stats JSON files
-    and its saved state (TLS, finder stats)."""
+                 batch: int, fastq2: Path | None = None, **opts) -> dict:
+    """AlignWorkflow at its defaults (or `opts`); returns the run's Stats
+    JSON files and its saved state (TLS, finder stats)."""
     AlignWorkflow(WorkflowOptions(
         reference=str(index_dir), output_dir=str(out), fastq1=str(fastq),
         fastq2=str(fastq2) if fastq2 else None, batch_size=batch,
-        device=device)).run()
+        device=device, **opts)).run()
     out_stats = {name: json.loads((out / "Stats" / f"{name}.json").read_text())
                  for name in ("MatchSelectorStats", "BuildStats")}
     out_stats["state"] = json.loads(
@@ -385,9 +405,10 @@ def run_workflow(index_dir: Path, fastq: Path, out: Path, device: str,
     return out_stats
 
 
-def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
+def phase_workflow(args, genome, index, card: str, tmp: Path):
     """FASTQ -> sorted BAM through the port's workflow on the card at the
-    JAX benchmark's e2e_se size; returns the kernel's launches."""
+    JAX benchmark's e2e_se size; returns (the kernel's launches, the
+    simulated reads)."""
     rng = np.random.default_rng(args.seed + 2)
     t0 = time.perf_counter()
     index.save(tmp / "idx")
@@ -409,7 +430,7 @@ def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
                                              genome, sim)
     read_s = time.perf_counter() - t0
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
-    print(f"[5/11] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+    print(f"[5/13] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
           f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
           f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
@@ -419,7 +440,7 @@ def phase_workflow(args, genome, index, card: str, tmp: Path) -> int:
           f"s, setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the workflow never launched the banded_sw kernel")
-    return launches
+    return launches, sim
 
 
 def stage_split(ms: dict) -> str:
@@ -427,9 +448,21 @@ def stage_split(ms: dict) -> str:
 
 
 def check_se_bam(out: Path, genome, sim) -> tuple[float, float]:
+    """A single-end run's sorted.bam (`read_se_bam`), >= 0.95 aligned and
+    within 8 bp of the truth; returns (aligned, placed) fractions."""
+    mapped, placed = read_se_bam(out, genome, sim)
+    aligned_frac = float(mapped.mean())
+    placed_frac = float(placed.mean())
+    if aligned_frac < 0.95 or placed_frac < 0.95:
+        raise AssertionError(f"aligned {aligned_frac}, placed {placed_frac} "
+                             f"< 0.95")
+    return aligned_frac, placed_frac
+
+
+def read_se_bam(out: Path, genome, sim) -> tuple[np.ndarray, np.ndarray]:
     """A single-end run's sorted.bam: one record a read, coordinate order,
-    .bai and .md5, >= 0.95 aligned and within 8 bp of the truth (global
-    coordinates); returns (aligned, placed) fractions."""
+    .bai and .md5; returns (mapped, within 8 bp of the truth in global
+    coordinates), bool arrays in read order."""
     _text, refs, recs = read_bam(out)
     offsets = {c.name: c.offset for c in genome.contigs}
     ref_index = {name: i for i, (name, _len) in enumerate(refs)}
@@ -440,8 +473,7 @@ def check_se_bam(out: Path, genome, sim) -> tuple[float, float]:
     keys = [(ref_index[r.rname], r.pos) for r in recs if r.is_mapped]
     ordered = all(a <= b for a, b in zip(keys, keys[1:]))
     first_unmapped = int(np.argmin(mapped)) if not mapped.all() else len(recs)
-    aligned_frac = float(mapped.mean())
-    placed_frac = float((mapped & (np.abs(gpos - sim.starts[idx]) <= 8)).mean())
+    placed = mapped & (np.abs(gpos - sim.starts[idx]) <= 8)
     if len(recs) != sim.starts.shape[0]:
         raise AssertionError(f"{len(recs)} BAM records for "
                              f"{sim.starts.shape[0]} reads")
@@ -450,10 +482,8 @@ def check_se_bam(out: Path, genome, sim) -> tuple[float, float]:
     for ext in (".bai", ".md5"):
         if not Path(str(out) + ext).is_file():
             raise AssertionError(f"no {out.name}{ext}")
-    if aligned_frac < 0.95 or placed_frac < 0.95:
-        raise AssertionError(f"aligned {aligned_frac}, placed {placed_frac} "
-                             f"< 0.95")
-    return aligned_frac, placed_frac
+    order = np.argsort(idx)
+    return mapped[order], placed[order]
 
 
 def core_fields(path: Path) -> dict:
@@ -473,20 +503,30 @@ def mapq_flips(pairs) -> int:
     return flips
 
 
-def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
-                      al_gpu: Aligner) -> None:
+def se_card_vs_cpu(tmp: Path, reference: Path, fastq: Path, name: str,
+                   n: int, **opts) -> tuple[int, dict]:
+    """The single-end workflow (`opts`) on the `n` reads of `fastq` on the
+    card and on the CPU, into tmp/<name>_<device>: equal (qname, flag, pos,
+    CIGAR, NM), MAPQ floor flips only.  Returns (the flips, the card run's
+    `core_fields`)."""
     runs = {}
     for device in ("cuda", "cpu"):
-        run_workflow(tmp / "idx", tmp / "subset.fq", tmp / f"sub_{device}",
-                     device, WF_SUBSET)
-        runs[device] = core_fields(tmp / f"sub_{device}" / "sorted.bam")
+        out = tmp / f"{name}_{device}"
+        run_workflow(reference, fastq, out, device, n, **opts)
+        runs[device] = core_fields(out / "sorted.bam")
     gpu, cpu = runs["cuda"], runs["cpu"]
     diff = [(q, gpu[q][0], cpu.get(q, (None,))[0]) for q in gpu
             if gpu[q][0] != cpu.get(q, (None,))[0]]
-    if len(gpu) != WF_SUBSET or gpu.keys() != cpu.keys() or diff:
-        raise AssertionError(f"workflow card vs CPU: core fields differ on "
-                             f"{len(diff)} reads, e.g. {diff[:3]}")
-    wf_flips = mapq_flips((gpu[q][1], cpu[q][1]) for q in gpu)
+    if len(gpu) != n or gpu.keys() != cpu.keys() or diff:
+        raise AssertionError(f"workflow {name} card vs CPU: core fields "
+                             f"differ on {len(diff)} reads, e.g. {diff[:3]}")
+    return mapq_flips((gpu[q][1], cpu[q][1]) for q in gpu), gpu
+
+
+def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
+                      al_gpu: Aligner) -> None:
+    wf_flips, _ = se_card_vs_cpu(tmp, tmp / "idx", tmp / "subset.fq", "sub",
+                                 WF_SUBSET)
 
     sub = ReadBatch(names=batch.names[:2048], bases=batch.bases[:2048],
                     quals=batch.quals[:2048], lengths=batch.lengths[:2048])
@@ -502,7 +542,7 @@ def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
     flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
-    print(f"[6/11] card vs CPU: workflow on {WF_SUBSET} reads, "
+    print(f"[6/13] card vs CPU: workflow on {WF_SUBSET} reads, "
           f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
           f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
           flush=True)
@@ -538,7 +578,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     finder = stats["state"]["stats"].get("match_finder", {})
     work = ms["device_work"]
     n = PE_PAIRS
-    print(f"[7/11] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
+    print(f"[7/13] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
           f"{2 * n / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s, {build['bins']} bin(s), "
@@ -572,7 +612,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     # 5 calls: each enqueues ~140 kernels, and more than the device's
     # launch queue holds behind the sleep would make the host wait
     rescue_ms = cuda_ms(rescue, 5)
-    print(f"[7/11] rescue_shadows at the run's shape ({rows} rows x {window} "
+    print(f"[7/13] rescue_shadows at the run's shape ({rows} rows x {window} "
           f"offsets x {READ_LEN} bases, damaged mates, found {found:.3f}): "
           f"{rescue_ms:.4f} ms a call, {work['rescue_calls']} calls in the "
           f"run", flush=True)
@@ -580,7 +620,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     n_pe = max(1, round(work["sw_pairs"] / launches))
     timing = check_and_time(rng, al.device, n_pe, READ_LEN, sw.BWA_SCORES,
                             True)
-    print(f"[7/11] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
+    print(f"[7/13] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
           f"{work['sw_pairs']} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -588,20 +628,20 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     return launches, sp, tls
 
 
-def working_set(mem0: int, indexes: list) -> str:
-    """The device working set beside the planes of the paired run of BATCH
-    pairs just ended (its peak less what was allocated before it and less
-    the planes), held against the model that the workflow's group-major
-    decision subtracts from the card's free memory; raises if the run took
-    more than the model."""
+def working_set(mem0: int, indexes: list, neighbors: bool = False) -> str:
+    """The device working set beside the planes of the run of BATCH
+    templates (reads or pairs) just ended (its peak less what was allocated
+    before it and less the planes), held against the model that the
+    workflow's group-major decision subtracts from the card's free memory;
+    raises if the run took more than the model."""
     planes = sum(plane_bytes(ix) for ix in indexes)
     working = torch.cuda.max_memory_allocated() - mem0 - planes
-    model = wfmod.batch_working_set(BATCH, READ_LEN, len(indexes))
+    model = wfmod.batch_working_set(BATCH, READ_LEN, len(indexes), neighbors)
     if working > model:
         raise AssertionError(f"batch working set {working} B over the "
                              f"model's {model} B ({len(indexes)} groups)")
     return (f"batch working set {working} B ({working / BATCH:.1f} B a "
-            f"pair) beside {planes} B of planes, model {model} B")
+            f"template) beside {planes} B of planes, model {model} B")
 
 
 def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
@@ -679,19 +719,27 @@ def compare_pairs(what: str, gpu: dict, cpu: dict, n: int) -> int:
     return mapq_flips((gpu[k][1], cpu[k][1]) for k in gpu)
 
 
-def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
+def pe_card_vs_cpu(tmp: Path, name: str, **opts) -> tuple[dict, int]:
+    """The paired workflow (`opts`) on phase 7's first PE_SUBSET pairs on
+    the card and on the CPU, into tmp/<name>_<device>: the same TLS and
+    core fields (MAPQ: floor flips only).  Returns (the TLS, the flips)."""
     runs = {}
     for device in ("cuda", "cpu"):
-        out = tmp / f"pe_sub_{device}"
+        out = tmp / f"{name}_{device}"
         st = run_workflow(tmp / "idx", tmp / "pe_sub1.fq", out, device,
-                          PE_SUBSET, fastq2=tmp / "pe_sub2.fq")
+                          PE_SUBSET, fastq2=tmp / "pe_sub2.fq", **opts)
         runs[device] = (st["state"]["tls"],
                         pair_core(read_bam(out / "sorted.bam")[2]))
     if runs["cuda"][0] != runs["cpu"][0]:
-        raise AssertionError(f"learned TLS card {runs['cuda'][0]} vs CPU "
-                             f"{runs['cpu'][0]}")
-    wf_flips = compare_pairs("paired workflow", runs["cuda"][1],
-                             runs["cpu"][1], PE_SUBSET)
+        raise AssertionError(f"{name}: learned TLS card {runs['cuda'][0]} vs "
+                             f"CPU {runs['cpu'][0]}")
+    return runs["cuda"][0], compare_pairs(f"paired workflow {name}",
+                                          runs["cuda"][1], runs["cpu"][1],
+                                          PE_SUBSET)
+
+
+def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
+    learned, wf_flips = pe_card_vs_cpu(tmp, "pe_sub")
 
     index = SeedIndex.load(tmp / "idx")
     names = [f"t{i}" for i in range(PE_LIB)]
@@ -707,8 +755,8 @@ def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
         al.tls = tls
         lib[device] = pair_core(al.align_to_sam(*batches()))
     flips = compare_pairs("paired library", lib["cuda"], lib["cpu"], PE_LIB)
-    print(f"[8/11] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
-          f"{runs['cuda'][0]} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
+    print(f"[8/13] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
+          f"{learned} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
           f"tlen equal, MAPQ floor flips {wf_flips}; library on {PE_LIB} "
           f"pairs, equal, MAPQ floor flips {flips}", flush=True)
 
@@ -808,7 +856,7 @@ def phase_sort_reference(args, card: str, tmp: Path):
         if not np.array_equal(got, want):
             raise AssertionError(f"planted {k}-mers: card != CPU")
         planted.append(f"k={k} {int(got.sum())} of {got.size} in {k_s:.3f} s")
-    print(f"[9/11] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
+    print(f"[9/13] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
           f"bp, --group-limit {GROUP_LIMIT}: {len(names)} groups in "
           f"{cli_s:.2f} s (CLI process); {'; '.join(rows)}; contig 0 "
           f"({int(km.size)} unique 32-mers): card {int(dev_bits.sum())} "
@@ -842,11 +890,11 @@ def group_major(released: list | None = None):
             setattr(obj, name, value)
 
 
-def print_grouped_kernel(phase: str, what: str, rng, pairs_sw: int,
-                         launches: int) -> None:
+def print_kernel_at(phase: str, what: str, rng, pairs_sw: int,
+                    launches: int) -> None:
     """The kernel against its plain version, and timed, at the mean pairs
-    per launch that a grouped run gave it (each group polishes its own
-    rows, so its launches are smaller than a single index's)."""
+    per launch that a run gave it (each group of a grouped run polishes its
+    own rows, so its launches are smaller than a single index's)."""
     n_g = max(1, round(pairs_sw / launches))
     timing = check_and_time(rng, torch.device("cuda"), n_g, READ_LEN,
                             sw.BWA_SCORES, True)
@@ -885,7 +933,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
     groups = "; ".join(f"{g['records']} records, {g['plane_bytes']} B of "
                        f"planes, upload {g['upload_seconds']:.3f} s"
                        for g in ms["groups"])
-    print(f"[10/11] grouped workflow: {WF_READS} reads on {N_CONTIGS} contigs "
+    print(f"[10/13] grouped workflow: {WF_READS} reads on {N_CONTIGS} contigs "
           f"in 2 groups, FASTQ->BAM {WF_READS / wall:.1f} reads/s "
           f"({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
@@ -896,8 +944,8 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
           f"banded_sw launches {launches} "
           f"({ms['device_work']['sw_pairs']} pairs); groups: {groups}; card "
           f"free {free} of {total} B [{card}]", flush=True)
-    print_grouped_kernel("10/11", "grouped run", rng,
-                         ms["device_work"]["sw_pairs"], launches)
+    print_kernel_at("10/13", "grouped run", rng,
+                    ms["device_work"]["sw_pairs"], launches)
 
     run_workflow(tmp / "idx8", tmp / "g_sub.fq", tmp / "g_res", "cuda", BATCH)
     released: list = []
@@ -915,7 +963,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
         raise AssertionError(f"allocated after each release {released}, "
                              f"baseline {base}")
     uploads = [g["upload_seconds"] for g in st["MatchSelectorStats"]["groups"]]
-    print(f"[10/11] {GM_SUBSET} reads resident and group-major: sorted.bam "
+    print(f"[10/13] {GM_SUBSET} reads resident and group-major: sorted.bam "
           f"equal; allocated {released} B after the releases, baseline "
           f"{base} B; group-major uploads {uploads} s", flush=True)
     return launches
@@ -947,15 +995,15 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
     if ms.get("group_major") is not False or launches <= 0:
         raise AssertionError(f"group_major {ms.get('group_major')}, "
                              f"launches {launches}")
-    print(f"[11/11] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
+    print(f"[11/13] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
           f"{m['summary']}; banded_sw launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
           f"{work['rescue_calls']} calls; {working} [{card}]", flush=True)
-    print_grouped_kernel("11/11", "grouped paired run", rng,
-                         work["sw_pairs"], launches)
+    print_kernel_at("11/13", "grouped paired run", rng, work["sw_pairs"],
+                    launches)
 
     runs = {}
     with group_major():
@@ -972,9 +1020,199 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
                              f"{runs['cpu'][0]}")
     flips = compare_pairs("grouped paired workflow", runs["cuda"][1],
                           runs["cpu"][1], PE_SUBSET)
-    print(f"[11/11] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
+    print(f"[11/13] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
           f"equal, qname/flag/pos/cigar/NM/rnext/pnext/tlen equal, MAPQ floor "
           f"flips {flips}", flush=True)
+    return launches
+
+
+def seedable(genome, sim, k: int) -> np.ndarray:
+    """Reads with a k-base seed window (the default offsets) that equals
+    the genome at the read's true start and holds no N: the reads that an
+    exact k-mer seed can place.  bool [N] in read order."""
+    n = sim.starts.shape[0]
+    out = np.zeros(n, bool)
+    cols = np.arange(k)
+    step = 65_536
+    for a in range(0, n, step):
+        b = sim.bases[a:a + step]
+        rc = b[:, ::-1]
+        fwd = np.where(sim.reverse[a:a + step, None],
+                       np.where(rc < 4, 3 - rc, rc), b)
+        for off in default_seed_offsets(READ_LEN, k):
+            ref = genome.codes[sim.starts[a:a + step, None] + off + cols]
+            out[a:a + step] |= ((fwd[:, off:off + k] == ref)
+                                & (ref < 4)).all(axis=1)
+    return out
+
+
+def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
+    """`sort-reference -s 64` of phase 4's genome on the card, checked
+    against an in-memory build and annotation; then phase 5's reads through
+    the single-end workflow with -s 64 against it, and its first
+    WF_SUBSET reads on the card and on the CPU.  Returns the kernel's
+    launches in the full run."""
+    rng = np.random.default_rng(args.seed + 7)
+    write_fasta(tmp / "ref.fa", genome)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "isaac_aligner_tpu_torch", "sort-reference",
+         "-g", str(tmp / "ref.fa"), "-o", str(tmp / "idx64"), "-s", "64"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"sort-reference -s 64 failed: {proc.stdout}"
+                             f"{proc.stderr}")
+    disk = SeedIndex.load(tmp / "idx64")
+    t0 = time.perf_counter()
+    ref = build_index(genome, seed_len=64)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bits = annotate_index(ref.key_hi, ref.key_lo, k=64, key_mids=ref.key_mids,
+                          device="cuda")
+    annot_s = time.perf_counter() - t0
+    planes = [(getattr(disk, f), getattr(ref, f))
+              for f in ("key_hi", "key_lo", "pos")]
+    planes += list(zip(disk.key_mids, ref.key_mids))
+    if (disk.seed_len != 64 or len(disk.key_mids) != 2
+            or not all(np.array_equal(a, b) for a, b in planes)):
+        raise AssertionError("sort-reference -s 64: planes differ from "
+                             "build_index")
+    if not np.array_equal(disk.has_neighbors, bits.astype(np.uint8)):
+        raise AssertionError("sort-reference -s 64: neighbor bits differ")
+    print(f"[12/13] sort-reference -s 64: {genome.total_length} bp, "
+          f"{disk.num_records} records in {cli_s:.2f} s (CLI process); in "
+          f"memory build {build_s:.2f} s, annotation on the card "
+          f"{annot_s:.2f} s, flagged {float(bits.mean()):.4f}; planes and "
+          f"neighbor bits equal; {plane_bytes(disk)} B of planes on the card "
+          f"[{card}]", flush=True)
+
+    sw.banded_sw.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx64", tmp / "wf.fq", tmp / "wf64", "cuda",
+                         BATCH, seed_len=64)
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    working = working_set(mem0, [disk])
+    mapped, placed = read_se_bam(tmp / "wf64" / "sorted.bam", genome, sim)
+    ok = seedable(genome, sim, 64)
+    aligned_ok = float(mapped[ok].mean())
+    placed_aligned = float(placed[mapped].mean())
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    finder = stats["state"]["stats"].get("match_finder", {})
+    print(f"[12/13] workflow -s 64 against the 64-mer index: {WF_READS} "
+          f"reads, FASTQ->BAM {WF_READS / wall:.1f} reads/s ({wall:.2f} s; "
+          f"align_seconds {ms['align_seconds']:.2f} s: {stage_split(ms)}; "
+          f"build_seconds {build['build_seconds']:.2f} s); aligned "
+          f"{float(mapped.mean()):.4f} of all reads and {aligned_ok:.4f} of "
+          f"the {int(ok.sum())} with an exact N-free 64-mer seed window, "
+          f"within 8 bp of truth {placed_aligned:.4f} of the aligned "
+          f"(seeds without a match {finder.get('seeds_no_match')}, repeat-"
+          f"suppressed {finder.get('seeds_too_many')}); banded_sw launches "
+          f"{launches} ({ms['device_work']['sw_pairs']} pairs); {working} "
+          f"[{card}]",
+          flush=True)
+    if aligned_ok < 0.95 or placed_aligned < 0.95:
+        raise AssertionError(f"-s 64: aligned {aligned_ok} of the seedable "
+                             f"reads, placed {placed_aligned} of the aligned "
+                             f"< 0.95")
+    if launches <= 0:
+        raise AssertionError("the 64-mer workflow never launched banded_sw")
+    print_kernel_at("12/13", "64-mer run", rng, ms["device_work"]["sw_pairs"],
+                    launches)
+    flips, _ = se_card_vs_cpu(tmp, tmp / "idx64", tmp / "subset.fq", "sub64",
+                              WF_SUBSET, seed_len=64)
+    print(f"[12/13] card vs CPU, -s 64 against the 64-mer index: workflow on "
+          f"{WF_SUBSET} reads, qname/flag/pos/cigar/NM equal, MAPQ floor "
+          f"flips {flips}", flush=True)
+    return launches
+
+
+def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
+    """--neighborhood-size-threshold and --scatter-repeats on the 32-mer
+    index: phase 7's pairs through the paired workflow with both, one
+    library batch's neighbor hits, and each seed option alone on the card
+    and on the CPU.  Returns the kernel's launches in the paired run."""
+    rng = np.random.default_rng(args.seed + 8)
+    opts = {"neighborhood_size_threshold": NB_THRESHOLD,
+            "scatter_repeats": True}
+    sw.banded_sw.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx", tmp / "pe1.fq", tmp / "pe_opts", "cuda",
+                         BATCH, fastq2=tmp / "pe2.fq", **opts)
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    index = SeedIndex.load(tmp / "idx")
+    working = working_set(mem0, [index], neighbors=True)
+    m = check_paired_bam(tmp / "pe_opts" / "sorted.bam", genome, sp, stats)
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    work = ms["device_work"]
+    print(f"[13/13] paired workflow with --neighborhood-size-threshold "
+          f"{NB_THRESHOLD} --scatter-repeats 1: {PE_PAIRS} pairs, FASTQ->BAM "
+          f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
+          f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
+          f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
+          f"{m['summary']}; proper_pairs {ms['proper_pairs']}; banded_sw "
+          f"launches {launches} ({work['sw_pairs']} pairs); rescue "
+          f"{work['rescue_rows']} rows in {work['rescue_calls']} calls; "
+          f"{working} [{card}]", flush=True)
+    if launches <= 0:
+        raise AssertionError("the options' paired workflow never launched "
+                             "banded_sw")
+    print_kernel_at("13/13", "options' paired run", rng, work["sw_pairs"],
+                    launches)
+
+    # one library batch with the threshold: the seed stage's neighbor hits
+    cfg = AlignConfig(seed_offsets=default_seed_offsets(READ_LEN, 32),
+                      neighborhood_size_threshold=NB_THRESHOLD)
+    al = Aligner.create(index, read_len=READ_LEN, cfg=cfg, device="cuda")
+    batch = ReadBatch(names=[f"r{i}" for i in range(BATCH)],
+                      bases=sim.bases[:BATCH],
+                      quals=np.full((BATCH, READ_LEN), 30, np.uint8),
+                      lengths=np.full(BATCH, READ_LEN, np.int32))
+    t0 = time.perf_counter()
+    recs = al.align_to_sam(batch)
+    lib_s = time.perf_counter() - t0
+    diag = find_seed_hits(al.arrays, al.cfg,
+                          torch.from_numpy(batch.bases).to(al.device))[4]
+    nb = diag["neighbor_hits"].cpu().numpy()
+    aligned = float(np.mean([r.is_mapped for r in recs]))
+    al.release_device()
+    if nb.sum() <= 0:
+        raise AssertionError("the neighbor pass found no hit")
+    print(f"[13/13] library batch of {BATCH} reads with the threshold: "
+          f"{int(nb.sum())} neighbor hits on {int((nb > 0).sum())} reads, "
+          f"aligned {aligned:.4f}, FASTQ->SAM {BATCH / lib_s:.1f} reads/s",
+          flush=True)
+
+    # each option alone, card vs CPU
+    rows, card_runs = [], {}
+    for name, ref, o in (
+            ("-s 64 over the FASTA", tmp / "ref.fa", {"seed_len": 64}),
+            (f"--neighborhood-size-threshold {NB_THRESHOLD}", tmp / "idx",
+             {"neighborhood_size_threshold": NB_THRESHOLD}),
+            ("--scatter-repeats 1", tmp / "idx", {"scatter_repeats": True})):
+        flips, card_runs[name] = se_card_vs_cpu(
+            tmp, ref, tmp / "subset.fq", f"opt{len(rows)}", WF_SUBSET, **o)
+        rows.append(f"{name}: MAPQ floor flips {flips}")
+    # the reads that the hash pick moved off phase 6's default placement
+    default = core_fields(tmp / "sub_cuda" / "sorted.bam")
+    scatter = card_runs["--scatter-repeats 1"]
+    moved = sum(scatter[q][0][:2] != default[q][0][:2] for q in scatter)
+    tls, flips = pe_card_vs_cpu(tmp, "pe_scatter", scatter_repeats=True)
+    rows.append(f"paired --scatter-repeats 1: TLS {tls} equal, MAPQ floor "
+                f"flips {flips}")
+    print(f"[13/13] card vs CPU, each option alone on {WF_SUBSET} reads or "
+          f"pairs, core fields equal: {'; '.join(rows)}; the single-end hash "
+          f"pick moved {moved} reads off the default run's placement",
+          flush=True)
     return launches
 
 
@@ -989,34 +1227,59 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/11] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/13] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/11] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/13] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
+    # (phase, seconds from the start to its end)
+    ends = [("1-3", time.perf_counter() - t_start)]
+
+    def done(phase: str) -> None:
+        ends.append((phase, time.perf_counter() - t_start))
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         genome, index, batch0, al, timing = phase_slice(args, dev, card,
                                                         Path(d))
-        se_launches = phase_workflow(args, genome, index, card, Path(d))
+        done("4")
+        se_launches, sim = phase_workflow(args, genome, index, card, Path(d))
+        done("5")
         phase_card_vs_cpu(Path(d), index, batch0, al)
+        done("6")
         pe_launches, sp, tls = phase_paired_workflow(args, genome, card,
                                                      Path(d))
+        done("7")
         phase_paired_card_vs_cpu(Path(d), sp, tls)
+        done("8")
         genome8 = phase_sort_reference(args, card, Path(d))
+        done("9")
         gse_launches = phase_grouped_workflow(args, genome8, card, Path(d))
+        done("10")
         gpe_launches = phase_grouped_paired(args, genome8, card, Path(d))
-    launches = se_launches + pe_launches + gse_launches + gpe_launches
-    print(f"banded_sw launches on the main paths: single-end workflow "
-          f"{se_launches} + paired workflow {pe_launches} + grouped "
-          f"single-end workflow {gse_launches} + grouped paired workflow "
-          f"{gpe_launches} = {launches}; all phases in "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        done("11")
+        i64_launches = phase_index64(args, genome, sim, card, Path(d))
+        done("12")
+        opt_launches = phase_seed_options(args, genome, sim, sp, card, Path(d))
+        done("13")
+    counts = (("single-end workflow", se_launches),
+              ("paired workflow", pe_launches),
+              ("grouped single-end workflow", gse_launches),
+              ("grouped paired workflow", gpe_launches),
+              ("64-mer workflow", i64_launches),
+              ("paired workflow with the seed options", opt_launches))
+    launches = sum(c for _, c in counts)
+    per_phase = ", ".join(f"{p} {e - s:.1f} s" for (_, s), (p, e)
+                          in zip([("", 0.0)] + ends, ends))
+    print(f"banded_sw launches on the main paths: "
+          f"{' + '.join(f'{what} {c}' for what, c in counts)} = {launches}; "
+          f"all phases in {time.perf_counter() - t_start:.1f} s ({per_phase})",
+          flush=True)
     jax_mods = sorted(m for m in sys.modules if m.startswith("jax")
                       or m.split(".")[0] == "isaac_aligner_tpu")
     if jax_mods:

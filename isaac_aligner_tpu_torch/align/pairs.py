@@ -28,11 +28,8 @@ from .. import dna
 from ..ops import bitops
 from . import quality
 from .pipeline import (GENOME_PAD, GN_PAD_WORDS, GP_PAD_WORDS, AlignConfig,
-                       IndexArrays, _funnel, genome_len_of)
+                       IndexArrays, _funnel, genome_len_of, scatter_hash)
 from .tls import TEMPLATE_LENGTH_THRESHOLD, TemplateLengthStatistics
-
-_NOT_PORTED_SCATTER = ("scatter_repeats is not ported yet (ROADMAP queue A: "
-                       "64-mer seeds and neighbor matching)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,9 +113,9 @@ def resolve_pairs(cfg: AlignConfig, tls: TlsStatic, end1: dict, end2: dict,
     obs_len, all [B, C].  Returns the best-pair indices, template score
     (clamped to [-1, mapq_cap]), proper flag and probability sums, [B].
     Probability mass is on the exp(-m) scale (m the row's best matched
-    pair log prob); `total_prob` is scaled, `log_scale` carries m."""
-    if cfg.scatter_repeats:
-        raise NotImplementedError(_NOT_PORTED_SCATTER)
+    pair log prob); `total_prob` is scaled, `log_scale` carries m.
+    With --scatter-repeats, exact-tie pairs pick by a hash of (row,
+    start1, start2) instead of the lowest positions."""
     p1 = end1["start"][:, :, None]
     p2 = end2["start"][:, None, :]
     r1 = end1["orient"][:, :, None]
@@ -146,7 +143,16 @@ def resolve_pairs(cfg: AlignConfig, tls: TlsStatic, end1: dict, end2: dict,
     total_prob = prob.sum(dim=(1, 2))
     key = torch.where(match, pair_sw.to(torch.float32) * 1e5 - pair_lp,
                       inf).reshape(b, c1 * c2)
-    best_flat = torch.argmin(key, dim=1)          # first index on ties
+    if cfg.scatter_repeats:
+        kmin = key.amin(dim=1, keepdim=True)
+        tie = torch.isfinite(key) & (key <= kmin)
+        row = torch.arange(b, dtype=torch.int32, device=p1.device)
+        h = scatter_hash(row[:, None, None].expand(match.shape),
+                         p1.expand(match.shape),
+                         p2.expand(match.shape)).reshape(b, -1)
+        best_flat = torch.argmax(torch.where(tie, h, -1), dim=1)
+    else:
+        best_flat = torch.argmin(key, dim=1)      # first index on ties
     i1 = best_flat // c2
     i2 = best_flat % c2
     resolved = match.reshape(b, -1).any(dim=1)

@@ -4,9 +4,11 @@ Port of `isaac_aligner_tpu/align/pipeline.py` (the JAX program that
 `_single_packed_jit` compiles into one XLA executable).  Here the same
 stages run as eager torch ops on the aligner's device:
 
-    quality trim -> seed packing -> bucketed binary search -> two-pass seed
-    escalation -> sort-dedup -> packed-word ungapped scoring -> best pick ->
-    MAPQ -> semialigned-end clip
+    quality trim -> seed packing -> bucketed binary search (2 or 4 key
+    words) -> 64-mer extension check -> neighbor (Hamming<=1) pass ->
+    two-pass seed escalation -> sort-dedup -> packed-word ungapped scoring
+    -> best pick (or the --scatter-repeats hash pick) -> MAPQ ->
+    semialigned-end clip
 
 Every shape stays fixed as in JAX (capacity-bounded hits, candidates and
 scoring queue), so no stage syncs with the host: `jnp.nonzero(size=...)`
@@ -17,10 +19,8 @@ ride in int64 carriers so shifts are logical.
 The paired path (`align/pairs.py`) scores each end with `score_end`: the
 same stages up to the ungapped scorer, without the single-end pick.
 
-Not ported yet (they raise NotImplementedError rather than run a different
-path): 64-mer seeds and 64-mer indexes, neighbor (Hamming<=1) matching,
-and --scatter-repeats (ROADMAP queue A).  The result packing for the TPU
-link (`compact_cand_result`, `pack_device_result`) is left behind.
+The result packing for the TPU link (`compact_cand_result`,
+`pack_device_result`) is left behind.
 """
 
 from __future__ import annotations
@@ -50,12 +50,6 @@ GENOME_PAD = GP_PAD_WORDS * 16
 _U32 = bitops.U32_MASK
 _I32_MAX = 2**31 - 1
 
-_ROADMAP_ITEM = "ROADMAP queue A: 64-mer seeds and neighbor matching"
-_NOT_PORTED_64 = f"64-mer seeds / 64-mer indexes are not ported yet ({_ROADMAP_ITEM})"
-_NOT_PORTED_NB = (f"neighbor matching (neighborhood_size_threshold > 0) is not "
-                  f"ported yet ({_ROADMAP_ITEM})")
-_NOT_PORTED_SCATTER = f"scatter_repeats is not ported yet ({_ROADMAP_ITEM})"
-
 
 @dataclasses.dataclass
 class IndexArrays:
@@ -75,7 +69,7 @@ class IndexArrays:
     genome_nbits: torch.Tensor    # int64 [ceil(G/32) + 2*GN_PAD_WORDS]
     bucket_starts: torch.Tensor   # int32 [2^bucket_width + 1]
     plane_base: int = 0
-    key_mids: tuple = ()
+    key_mids: tuple = ()          # 64-mer index: (mid1, mid2) int32 [Npad]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +206,13 @@ def default_seed_offsets(read_len: int, seed_len: int) -> tuple[int, ...]:
     return tuple(offsets)
 
 
+def runs_neighbor_pass(cfg: AlignConfig) -> bool:
+    """Whether the seed stage runs the Hamming<=1 neighbor pass: a
+    threshold set and 32-mer seeds (16- and 64-mer runs take the threshold
+    with the pass off, as the JAX package does)."""
+    return cfg.neighborhood_size_threshold > 0 and cfg.seed_len == 32
+
+
 def seed_table(read_len: int, cfg: AlignConfig) -> list[tuple[int, int]]:
     """Static (orient, query-offset) seed list; orient-1 seeds live at the
     mirrored offset in the reverse-complemented read."""
@@ -253,14 +254,17 @@ def _upload_plane(x, n_pad: int, fill: int, dtype: np.dtype,
 
 def plane_bytes(index: SeedIndex) -> int:
     """Device bytes of `prepare_index`'s planes for `index`: 13 B a padded
-    record (key_hi, key_lo and pos int32, the uint8 neighbor bit), the
-    packed genome and N-bit planes in their int64 carriers, and the bucket
-    table."""
+    record (key_hi, key_lo and pos int32, the uint8 neighbor bit) and 4 B
+    more for each middle key word (21 B for a 64-mer index), the packed
+    genome and N-bit planes in their int64 carriers, the bucket table and
+    the contig bounds."""
     n_pad = search.pad_pow2(max(index.num_records, 1))
     g = index.genome.total_length
     words = (-(-g // 16) + 2 * GP_PAD_WORDS) + (-(-g // 32) + 2 * GN_PAD_WORDS)
     buckets = (1 << choose_bucket_width(index.num_records)) + 1
-    return 13 * n_pad + 8 * words + 4 * buckets
+    per_record = 13 + 4 * len(index.key_mids)
+    return (per_record * n_pad + 8 * words + 4 * buckets
+            + 8 * len(index.genome.contigs))
 
 
 def prepare_index(index: SeedIndex, device,
@@ -273,8 +277,6 @@ def prepare_index(index: SeedIndex, device,
     device consumer reads the packed planes, and cfg.genome_len (set by
     Aligner.create) carries the genome length."""
     dev = require_device(device)
-    if index.key_mids:
-        raise NotImplementedError(_NOT_PORTED_64)
     n = index.num_records
     n_pad = search.pad_pow2(max(n, 1))
     cached_planes = getattr(index, "_packed_planes", None)
@@ -291,6 +293,8 @@ def prepare_index(index: SeedIndex, device,
     return IndexArrays(
         key_hi=_upload_plane(index.key_hi, n_pad, _I32_MAX, np.int32, dev),
         key_lo=_upload_plane(index.key_lo, n_pad, _I32_MAX, np.int32, dev),
+        key_mids=tuple(_upload_plane(m, n_pad, _I32_MAX, np.int32, dev)
+                       for m in index.key_mids),
         pos=_upload_plane(index.pos, n_pad, int(TOO_MANY_POS), np.int32, dev),
         n_real=n,
         genome=(up(index.genome.codes, np.uint8) if upload_codes
@@ -312,8 +316,6 @@ def index_arrays_from_numpy(d: dict, device) -> IndexArrays:
     pulled to numpy (`{name: np.asarray(plane)}`), so both sides read
     identical planes."""
     dev = require_device(device)
-    if d.get("key_mids"):
-        raise NotImplementedError(_NOT_PORTED_64)
 
     def up(name, dtype):
         return torch.from_numpy(np.array(d[name], dtype=dtype)).to(dev)
@@ -321,6 +323,8 @@ def index_arrays_from_numpy(d: dict, device) -> IndexArrays:
     return IndexArrays(
         key_hi=up("key_hi", np.int32),
         key_lo=up("key_lo", np.int32),
+        key_mids=tuple(torch.from_numpy(np.array(m, np.int32)).to(dev)
+                       for m in d.get("key_mids", ())),
         pos=up("pos", np.int32),
         n_real=int(d["n_real"]),
         genome=up("genome", np.uint8),
@@ -377,9 +381,36 @@ def _contig_of(arrays: IndexArrays, mid: torch.Tensor) -> torch.Tensor:
 
 
 def _funnel(words: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """Logical funnel shift of adjacent uint32 words (int64 carriers):
-    (lo << s) | (hi >> (32 - s)), 0 <= s < 32 (s == 0 gives lo)."""
-    return ((words[:, :-1] << shift) & _U32) | (words[:, 1:] >> (32 - shift))
+    """Logical funnel shift of adjacent uint32 words along the last axis
+    (int64 carriers): (lo << s) | (hi >> (32 - s)), 0 <= s < 32 (s == 0
+    gives lo)."""
+    return (((words[..., :-1] << shift) & _U32)
+            | (words[..., 1:] >> (32 - shift)))
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for uint32 `a` in an int64 carrier and a uint32
+    constant, in 16-bit halves of `c`: no product passes 2^48, so nothing
+    overflows the carrier."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def scatter_hash(row, pos, extra=None) -> torch.Tensor:
+    """Deterministic per-(read, placement) uint32 mix for --scatter-repeats
+    tie-breaking: the JAX package's splitmix-style finisher on the uint32
+    views of int32 inputs (negative positions included).  Returns int32
+    >= 0 (top bit cleared), so the argmax sentinel -1 never collides."""
+    def u32(x):
+        return x.to(torch.int64) & _U32
+
+    h = _mul32(u32(row), 0x9E3779B9)
+    h = h ^ _mul32(u32(pos), 0x85EBCA6B)
+    if extra is not None:
+        h = h ^ _mul32(u32(extra), 0xC2B2AE35)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x2C1B3C6D)
+    h = h ^ (h >> 12)
+    return (h & 0x7FFFFFFF).to(torch.int32)
 
 
 def _mismatch_planes(arrays: IndexArrays, cfg: AlignConfig, start, read_words,
@@ -433,29 +464,59 @@ def _finder_stats_from_diag(diag: dict) -> dict:
 # Stages
 # ---------------------------------------------------------------------------
 
+def _ext_word_masks(k_ext: int, w_ext: int, nw: int):
+    """(2-bit word masks [w_ext], N-bit word masks [nw - 1]) of the first
+    k_ext bases of a funnel-shifted extension window."""
+    tail = k_ext - 16 * (w_ext - 1)
+    words = [_U32] * (w_ext - 1) + [(_U32 << (32 - 2 * tail)) & _U32]
+    nbits = [(_U32 << (32 - min(32, k_ext - 32 * i))) & _U32
+             if k_ext > 32 * i else 0 for i in range(nw - 1)]
+    return words, nbits
+
+
 def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
-    """Stage A: exact 16/32-mer seeds -> per-hit (start, orient, valid,
-    clean), flat [B, S*R], plus per-seed diagnostics."""
+    """Stage A: seeds -> per-hit (start, orient, valid, clean), flat
+    [B, H], plus per-seed diagnostics.
+
+    Seeds longer than the index's k search their k-mer prefix and verify
+    the remaining bases against the packed genome (64-mer seeds over a
+    32-mer index); a 64-mer index compares all four key words.  With
+    `neighborhood_size_threshold` and 32-mer seeds, seeds without an exact
+    hit scan their 16-base-prefix block for Hamming<=1 k-mers, and those
+    hits follow the exact ones (never clean anchors)."""
     b, read_len = bases.shape
     k = cfg.seed_len
     idx_k = cfg.index_seed_len or min(k, 32)
-    if k == 64 or idx_k == 64 or arrays.key_mids:
-        raise NotImplementedError(_NOT_PORTED_64)
-    if cfg.neighborhood_size_threshold > 0:
-        raise NotImplementedError(_NOT_PORTED_NB)
+    k_search = min(k, idx_k)
+    k_ext = k - k_search
+    n_words = max(k_search // 16, 2)    # 16/32 -> (hi, lo); 64 -> 4 words
     dev = bases.device
     rc_bases = bitops.revcomp_reads(bases)
     seed_list = seed_table(read_len, cfg)
 
-    his, los, nmask = [], [], []
+    wordps: list[list] = [[] for _ in range(n_words)]
+    nmask, extws = [], []
+    w_ext = -(-k_ext // 16)
     for orient, qoff in seed_list:
-        hi, lo, has_n = bitops.pack_seed(bases if orient == 0 else rc_bases,
-                                         qoff, k)
-        his.append(hi)
-        los.append(lo)
+        q = bases if orient == 0 else rc_bases
+        if k_search <= 32:
+            hi, lo, has_n = bitops.pack_seed(q, qoff, k_search)
+            ws = [hi, lo]
+        else:
+            hi, m1, n1 = bitops.pack_seed(q, qoff, 32)
+            m2, lo, n2 = bitops.pack_seed(q, qoff + 32, 32)
+            has_n = n1 | n2
+            ws = [hi, m1, m2, lo]
+        if k_ext:
+            ext = q[:, qoff + k_search : qoff + k]
+            has_n = has_n | (ext >= dna.NUM_BASES).any(dim=1)
+            extws.append(pack_reads(ext))               # [B, We] zero-padded
+        for i, w in enumerate(ws):
+            wordps[i].append(w)
         nmask.append(has_n)
-    q_hi = torch.stack(his, dim=1)                    # [B, S]
-    q_lo = torch.stack(los, dim=1)
+    q_words = [torch.stack(wp, dim=1) for wp in wordps]   # each [B, S]
+    q_hi, q_lo = q_words[0], q_words[-1]
+    q_mids = tuple(q_words[1:-1])
     seed_has_n = torch.stack(nmask, dim=1)
     qoff_arr = torch.tensor([s[1] for s in seed_list], dtype=torch.int32,
                             device=dev)
@@ -471,10 +532,12 @@ def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
         begin, count = search.sorted_range_bucketed(
             arrays.key_hi, arrays.key_lo, q_hi, q_lo, arrays.n_real,
             arrays.bucket_starts, cfg.bucket_width, cfg.bucket_log2,
-            count_cap_log2=cap_log2)
+            count_cap_log2=cap_log2, key_mids=arrays.key_mids, q_mids=q_mids)
     else:
         begin, count = search.sorted_range(arrays.key_hi, arrays.key_lo,
-                                           q_hi, q_lo, arrays.n_real)
+                                           q_hi, q_lo, arrays.n_real,
+                                           key_mids=arrays.key_mids,
+                                           q_mids=q_mids)
     count = torch.where(seed_has_n, 0, count)
 
     last = arrays.key_hi.shape[0] - 1
@@ -500,17 +563,85 @@ def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
     # the owning contig
     min_inside = read_len // 2 + 1
     max_over = min(read_len - min_inside, GENOME_PAD - 1)
-    mid = start + read_len // 2
-    cid = _contig_of(arrays, mid)
-    cs = arrays.contig_starts[cid]
-    ce = arrays.contig_ends[cid]
-    in_bounds = (mid >= cs) & (mid < ce) & (start >= cs - max_over) & \
-        (start + read_len <= ce + max_over)
-    valid = hit_valid & in_bounds & (start >= -max_over)
+
+    def contig_bounded(start_arr):
+        mid = start_arr + read_len // 2
+        cid = _contig_of(arrays, mid)
+        cs = arrays.contig_starts[cid]
+        ce = arrays.contig_ends[cid]
+        return (mid >= cs) & (mid < ce) & (start_arr >= cs - max_over) & \
+            (start_arr + read_len <= ce + max_over)
+
+    valid = hit_valid & contig_bounded(start) & (start >= -max_over)
+
+    if k_ext:
+        # the seed extension: genome[pos + k_search : pos + k] must equal
+        # the read's ext bases and hold no N.  An invalid hit's position
+        # (TOO_MANY_POS) gathers a real window: only `valid` gates it
+        q_ext = torch.stack(extws, dim=1)                    # [B, S, We]
+        ext_pos = torch.clamp(hit_pos.to(torch.int64) + k_search, min=0)
+        nw = -(-(k_ext + 31) // 32) + 1
+        word_mask, nbit_mask = _ext_word_masks(k_ext, w_ext, nw)
+        gp = arrays.genome_packed
+        word0 = ((ext_pos - arrays.plane_base) >> 4) + GP_PAD_WORDS
+        t_idx = torch.arange(w_ext + 1, dtype=torch.int64, device=dev)
+        words = gp[torch.clamp(word0[..., None] + t_idx, 0, gp.shape[0] - 1)]
+        g_ext = _funnel(words, ((ext_pos & 15) << 1)[..., None])  # [B,S,R,We]
+        xor = (g_ext ^ q_ext[:, :, None, :]) & torch.tensor(
+            word_mask, dtype=torch.int64, device=dev)
+        valid = valid & (xor == 0).all(dim=-1)
+        if cfg.genome_has_n:
+            gn = arrays.genome_nbits
+            nword0 = ((ext_pos - arrays.plane_base) >> 5) + GN_PAD_WORDS
+            nt = torch.arange(nw, dtype=torch.int64, device=dev)
+            nwords = gn[torch.clamp(nword0[..., None] + nt, 0, gn.shape[0] - 1)]
+            n_al = _funnel(nwords, (ext_pos & 31)[..., None])
+            n_hit = ((n_al & torch.tensor(nbit_mask, dtype=torch.int64,
+                                          device=dev)) != 0).any(dim=-1)
+            valid = valid & ~n_hit
 
     diag = {"seed_match_counts": count, "seed_too_many": too_many}
-    return (start.reshape(b, -1), orient.reshape(b, -1),
-            valid.reshape(b, -1), clean.reshape(b, -1), diag)
+    starts_f, orients_f = [start.reshape(b, -1)], [orient.reshape(b, -1)]
+    valids_f, cleans_f = [valid.reshape(b, -1)], [clean.reshape(b, -1)]
+
+    if runs_neighbor_pass(cfg):
+        # NeighborMaskMatcher: a seed with no exact hit scans the sorted
+        # block sharing its 16-base prefix for k-mers whose 16-base suffix
+        # is within one base of its own.  The XOR of two biased low words
+        # cancels the bias; masked to 32 bits, it counts 2-bit symbols
+        p_begin, p_count = search.sorted_prefix_range(arrays.key_hi, q_hi,
+                                                      arrays.n_real)
+        scan = cfg.neighbor_scan_cap
+        # --ignore-repeats: repeat-suppressed exact matches do not block
+        # the inexact pass
+        not_blocked = (torch.ones_like(too_many) if cfg.ignore_repeats
+                       else ~too_many)
+        eligible = (eff == 0) & not_blocked & ~seed_has_n & (p_count > 0) & \
+            (p_count <= min(cfg.neighborhood_size_threshold, scan))
+        r2 = torch.arange(scan, dtype=torch.int64, device=dev)
+        nb_idx = torch.clamp(p_begin.to(torch.int64)[:, :, None] + r2,
+                             max=last)                       # [B, S, SC]
+        in_block = r2 < p_count[:, :, None]
+        xor = (arrays.key_lo[nb_idx].to(torch.int64)
+               ^ q_lo.to(torch.int64)[:, :, None]) & _U32
+        ham = bitops.base_mismatches32(xor)
+        nb_pos = arrays.pos[nb_idx]
+        nb_ok = eligible[:, :, None] & in_block & (ham <= 1) & \
+            (nb_pos != int(TOO_MANY_POS))
+        nb_start = nb_pos - qoff_arr[None, :, None]
+        nb_valid = nb_ok & contig_bounded(nb_start) & (nb_start >= -max_over)
+        starts_f.append(nb_start.reshape(b, -1))
+        orients_f.append(orient_arr[None, :, None].expand(nb_start.shape)
+                         .reshape(b, -1))
+        valids_f.append(nb_valid.reshape(b, -1))
+        # a neighbor hit carries a mismatch: never a clean anchor
+        cleans_f.append(torch.zeros_like(nb_valid).reshape(b, -1))
+        diag["neighbor_hits"] = nb_valid.sum(dim=(1, 2)).to(torch.int32)
+
+    def cat(xs):
+        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+
+    return cat(starts_f), cat(orients_f), cat(valids_f), cat(cleans_f), diag
 
 
 def dedup_candidates(start_f, orient_f, valid_f, clean_f, max_candidates: int):
@@ -723,9 +854,7 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
                         cand_start, cand_orient, cand_valid, diag,
                         well_anchored=None):
     """Stages C+D: score candidates, pick best, MAPQ (single-end)."""
-    if cfg.scatter_repeats:
-        raise NotImplementedError(_NOT_PORTED_SCATTER)
-    read_len = bases.shape[1]
+    b, read_len = bases.shape
     log_prob, mismatches, edit_distance, dropped = _score_ungapped(
         arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid)
 
@@ -735,7 +864,18 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=bases.device)
     order_key = torch.where(cand_valid,
                             mismatches.to(torch.float32) * 1e6 - log_prob, inf)
-    best = torch.argmin(order_key, dim=1)[:, None]
+    if cfg.scatter_repeats:
+        # exact-tie placements (identical repeat copies score bit-equal,
+        # sum_f32) pick by hash instead of the lowest genome position;
+        # argmax takes the first index on a hash tie
+        kmin = order_key.amin(dim=1, keepdim=True)
+        tie = cand_valid & (order_key <= kmin)
+        row = torch.arange(b, dtype=torch.int32, device=bases.device)
+        h = scatter_hash(row[:, None].expand(cand_start.shape), cand_start,
+                         cand_orient)
+        best = torch.argmax(torch.where(tie, h, -1), dim=1)[:, None]
+    else:
+        best = torch.argmin(order_key, dim=1)[:, None]
 
     def take(x):
         return x.gather(1, best)[:, 0]

@@ -37,25 +37,12 @@ import numpy as np
 import torch
 
 from ..device import require_device
-from ..ops.bitops import U32_MASK
+from ..ops.bitops import U32_MASK, base_mismatches32
 from .neighbors import DEFAULT_WIDTH, block_permutations
 
 #: device-path size bound (records); larger inputs take the host scan
 #: (`annotate_unique_auto`, the JAX package's routing)
 DEVICE_MAX_RECORDS = 200_000_000
-
-
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of uint32 values in int64 carriers."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) >> 24) & 0xFF
-
-
-def _base_mm32(x: torch.Tensor) -> torch.Tensor:
-    """Count differing 2-bit bases given the XOR of two packed words."""
-    return _popcount32((x | (x >> 1)) & 0x55555555)
 
 
 def _geometry(k: int) -> tuple[int, int, int]:
@@ -142,9 +129,9 @@ def find_neighbors_device(planes, k: int,
             same = pref[0][:-d] == pref[0][d:]
             for w in pref[1:]:
                 same &= w[:-d] == w[d:]
-            mm = _base_mm32(suf[0][:-d] ^ suf[0][d:])
+            mm = base_mismatches32(suf[0][:-d] ^ suf[0][d:])
             for w in suf[1:]:
-                mm += _base_mm32(w[:-d] ^ w[d:])
+                mm += base_mismatches32(w[:-d] ^ w[d:])
             near = same & (mm <= error_count) & (mm > 0)
             hit[:-d] |= near
             hit[d:] |= near

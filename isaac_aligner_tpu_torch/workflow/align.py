@@ -42,7 +42,8 @@ from pathlib import Path
 import numpy as np
 
 from ..align.pairs import TlsStatic
-from ..align.pipeline import AlignConfig, default_seed_offsets, plane_bytes
+from ..align.pipeline import (AlignConfig, default_seed_offsets, plane_bytes,
+                              runs_neighbor_pass)
 from ..aligner import Aligner, PairedAligner
 from ..build.storage import DistributionBinStore
 from ..device import require_device
@@ -54,48 +55,58 @@ STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
 
 #: The device bytes a batch holds beside the index planes at its peak, for
 #: a batch of `templates` (single-end reads, or pairs) of `read_len`
-#: bases a read against `groups` resident contig groups:
+#: bases a read against `groups` resident contig groups, with or without
+#: the seed stage's neighbor pass (`neighbors`):
 #:
 #:     WS_FIXED + templates * (
 #:         WS_TEMPLATE + WS_TEMPLATE_PER_BASE * read_len
-#:         + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len))
+#:         + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len)
+#:         + neighbors * (WS_NEIGHBOR + WS_NEIGHBOR_PER_BASE * read_len))
 #:
 #: (each further group's dispatched outputs stay alive until the batch's
-#: last group is finished; WS_FIXED holds what does not grow with the
-#: batch, such as the rescue's capped chunks).  Fitted by
-#: `scripts/torch_working_set.py` as an upper envelope of
-#: torch.cuda.max_memory_allocated less the planes, single-end and paired,
-#: at 100, 150 and 251 bp, 4,096 to 65,536 templates, one index and two
-#: groups, on an H100 80GB HBM3 at 700 W (each constant rounded up).  A
-#: template takes about as much as a pair's two ends (16.5 kB a 100 bp
-#: read, 17.7 kB a 100 bp pair).
-WS_FIXED = 265_478_784
-WS_TEMPLATE = 6_437
+#: last group is finished; the neighbor pass gathers `neighbor_scan_cap`
+#: records a seed and widens each seed's hit list from `max_hits_per_seed`
+#: slots to that plus `neighbor_scan_cap`, through the sort-dedup; WS_FIXED
+#: holds what does not grow with the batch, such as the rescue's capped
+#: chunks).  Fitted by `scripts/torch_working_set.py` as an upper envelope
+#: of torch.cuda.max_memory_allocated less the planes, single-end and
+#: paired, at 100, 150 and 251 bp, 4,096 to 65,536 templates, one index,
+#: two groups and one index with the neighbor pass, on an H100 80GB HBM3 at
+#: 700 W (each constant rounded up).  A template takes about as much as a
+#: pair's two ends (16.5 kB a 100 bp read, 17.6 kB a 100 bp pair; 42.1 and
+#: 43.3 kB with the neighbor pass).
+WS_FIXED = 262_655_126
+WS_TEMPLATE = 7_115
 WS_TEMPLATE_PER_BASE = 117
 WS_GROUP = 640
-WS_GROUP_PER_BASE = 1
+WS_GROUP_PER_BASE = 0
+WS_NEIGHBOR = 7_501
+WS_NEIGHBOR_PER_BASE = 171
 
 
-def batch_working_set(templates: int, read_len: int, groups: int) -> int:
+def batch_working_set(templates: int, read_len: int, groups: int,
+                      neighbors: bool = False) -> int:
     """Device bytes a batch needs beside the planes (the model above)."""
     return WS_FIXED + templates * (
         WS_TEMPLATE + WS_TEMPLATE_PER_BASE * read_len
-        + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len))
+        + (groups - 1) * (WS_GROUP + WS_GROUP_PER_BASE * read_len)
+        + neighbors * (WS_NEIGHBOR + WS_NEIGHBOR_PER_BASE * read_len))
 
 
 def device_memory_budget(device, templates: int, read_len: int,
-                         groups: int) -> int:
+                         groups: int, neighbors: bool) -> int:
     """Bytes of index planes that `device` can hold beside a batch of
     `templates` reads or pairs of `read_len` bases against `groups`
-    resident groups: on a card, its free memory (torch.cuda.mem_get_info)
-    less the batch's working set; on the CPU, the host's physical
-    memory."""
+    resident groups, with or without the neighbor pass: on a card, its
+    free memory (torch.cuda.mem_get_info) less the batch's working set; on
+    the CPU, the host's physical memory."""
     import torch
 
     dev = require_device(device)
     if dev.type == "cuda":
         free, _total = torch.cuda.mem_get_info(dev)
-        return free - batch_working_set(templates, read_len, groups)
+        return free - batch_working_set(templates, read_len, groups,
+                                        neighbors)
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
@@ -485,8 +496,9 @@ class AlignWorkflow:
         genome = self._genome()
         paired = self._paired
         ends = 2 if paired else 1
+        cfg = self._align_config(read_len, index)
         common = dict(read_len=read_len,
-                      cfg=self._align_config(read_len, index),
+                      cfg=cfg,
                       device=o.device,
                       base_quality_cutoff=o.base_quality_cutoff,
                       clip_semialigned=o.clip_semialigned,
@@ -507,7 +519,8 @@ class AlignWorkflow:
             # time (parallel/multi_index._group_major_many)
             need = sum(plane_bytes(ix) for ix in indexes)
             budget = device_memory_budget(o.device, o.batch_size, read_len,
-                                          len(indexes))
+                                          len(indexes),
+                                          runs_neighbor_pass(cfg))
             gm = need > budget
             if gm:
                 tracing.log(

@@ -3,8 +3,10 @@
 GPU, and fit the model of `workflow.align.batch_working_set`.
 
 For each read length of --lengths, single-end and paired, against one
-index and against two contig groups both resident, and for each batch of
---rows read rows (reads, or twice the pairs), runs --batches batches of
+index, against two contig groups both resident, and against one index
+with the seed stage's neighbor pass on (--neighborhood-size-threshold
+100), and for each batch of --rows read rows (reads, or twice the
+pairs), runs --batches batches of
 simulated reads through the aligner that `AlignWorkflow` runs on the card
 (`Aligner` / `PairedAligner`, or `MultiIndexAligner` /
 `MultiIndexPairedAligner` over the groups) and records
@@ -14,9 +16,10 @@ stays alive while a resident batch's other groups run.  Then it fits, per
 template (a read, or a pair: a batch's size),
 
     bytes = F + templates * (a + b * read_len
-                             + (groups - 1) * (p + q * read_len))
+                             + (groups - 1) * (p + q * read_len)
+                             + neighbors * (c + d * read_len))
 
-as an upper envelope: (a, b, p, q) by least squares to the bytes a
+as an upper envelope: (a, b, p, q, c, d) by least squares to the bytes a
 template of the largest batches (where the per-template terms dominate),
 `a` raised until none of them lies above, then F the largest excess of any
 run over the per-template terms (the parts that do not grow with the
@@ -45,6 +48,8 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import card_line  # noqa: E402
 from isaac_aligner_tpu_torch import synthetic  # noqa: E402
+from isaac_aligner_tpu_torch.align.pipeline import (  # noqa: E402
+    AlignConfig, default_seed_offsets)
 from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner  # noqa: E402
 from isaac_aligner_tpu_torch.index.build import build_index  # noqa: E402
 from isaac_aligner_tpu_torch.index.groups import (  # noqa: E402
@@ -54,6 +59,7 @@ from isaac_aligner_tpu_torch.parallel.multi_index import (  # noqa: E402
     MultiIndexAligner, MultiIndexPairedAligner)
 
 GROUP_LIMIT = 2_400_000     # the 4.6 Mbp genome as two groups of 4 contigs
+NB_THRESHOLD = 100          # --neighborhood-size-threshold of the neighbor runs
 
 
 def batch(bases: np.ndarray, prefix: str) -> ReadBatch:
@@ -63,12 +69,14 @@ def batch(bases: np.ndarray, prefix: str) -> ReadBatch:
                      lengths=np.full(n, length, np.int32))
 
 
-def make_aligner(indexes, paired: bool, read_len: int):
+def make_aligner(indexes, paired: bool, read_len: int, neighbors: bool):
+    cfg = AlignConfig(seed_offsets=default_seed_offsets(read_len, 32),
+                      neighborhood_size_threshold=NB_THRESHOLD * neighbors)
     if len(indexes) > 1:
         cls = MultiIndexPairedAligner if paired else MultiIndexAligner
-        return cls.create(indexes, read_len=read_len, device="cuda")
+        return cls.create(indexes, read_len=read_len, cfg=cfg, device="cuda")
     cls = PairedAligner if paired else Aligner
-    return cls.create(indexes[0], read_len=read_len, device="cuda")
+    return cls.create(indexes[0], read_len=read_len, cfg=cfg, device="cuda")
 
 
 def dispatch_bytes(al, inputs) -> int:
@@ -81,10 +89,10 @@ def dispatch_bytes(al, inputs) -> int:
 
 
 def measure(rng, genome, indexes, paired: bool, read_len: int, rows: int,
-            n_batches: int) -> dict:
+            n_batches: int, neighbors: bool) -> dict:
     """The peak bytes allocated beyond the planes over `n_batches`
     batches of `rows` read rows."""
-    al = make_aligner(indexes, paired, read_len)
+    al = make_aligner(indexes, paired, read_len, neighbors)
     if paired:
         # inserts scale with the read: N(300, 50) in [150, 500] at 100 bp
         sp = synthetic.make_pairs(
@@ -114,7 +122,7 @@ def measure(rng, genome, indexes, paired: bool, read_len: int, rows: int,
     del al
     torch.cuda.empty_cache()
     return {"paired": paired, "read_len": read_len, "rows": rows,
-            "groups": len(indexes), "bytes": peak,
+            "groups": len(indexes), "neighbors": neighbors, "bytes": peak,
             "dispatch_bytes": pending}
 
 
@@ -124,7 +132,8 @@ def templates(r: dict) -> int:
 
 def per_template_terms(r: dict) -> list[float]:
     g = r["groups"] - 1
-    return [1.0, r["read_len"], g, g * r["read_len"]]
+    n = float(r["neighbors"])
+    return [1.0, r["read_len"], g, g * r["read_len"], n, n * r["read_len"]]
 
 
 def fit(runs: list[dict]) -> dict:
@@ -150,7 +159,7 @@ def fit(runs: list[dict]) -> dict:
     fixed = max(0.0, max(r["bytes"] - templates(r)
                          * float(np.dot(per_template_terms(r), coef))
                          for r in runs))
-    return {"F": fixed, **dict(zip("abpq", (float(c) for c in coef)))}
+    return {"F": fixed, **dict(zip("abpqcd", (float(c) for c in coef)))}
 
 
 def main() -> None:
@@ -165,20 +174,22 @@ def main() -> None:
     card = card_line()
     rng = np.random.default_rng(args.seed)
     genome = synthetic.make_genome(rng, n_contigs=8)
-    layouts = {1: [build_index(genome, seed_len=32)],
-               2: [build_index(subset_genome(genome, names), seed_len=32)
-                   for names in split_genome_groups(genome.contigs,
-                                                    GROUP_LIMIT)]}
+    one = [build_index(genome, seed_len=32)]
+    grouped = [build_index(subset_genome(genome, names), seed_len=32)
+               for names in split_genome_groups(genome.contigs, GROUP_LIMIT)]
+    # (indexes, neighbor pass)
+    layouts = ((one, False), (grouped, False), (one, True))
     runs = []
     for read_len in (int(x) for x in args.lengths.split(",")):
         for paired in (False, True):
-            for groups, indexes in layouts.items():
+            for indexes, neighbors in layouts:
                 for rows in (int(x) for x in args.rows.split(",")):
                     r = measure(rng, genome, indexes, paired, read_len, rows,
-                                args.batches)
+                                args.batches, neighbors)
                     runs.append(r)
                     print(f"{'paired' if paired else 'single'} L={read_len} "
-                          f"groups={groups} rows={rows}: {r['bytes']} B "
+                          f"groups={len(indexes)} neighbors={neighbors} "
+                          f"rows={rows}: {r['bytes']} B "
                           f"({r['bytes'] / rows:.1f} B a row), one dispatch's "
                           f"outputs {r['dispatch_bytes']} B "
                           f"({r['dispatch_bytes'] / rows:.1f} B a row) "
@@ -186,7 +197,9 @@ def main() -> None:
     model = fit(runs)
     print(f"fit: F {model['F']:.0f} B; a template a {model['a']:.1f} + b "
           f"{model['b']:.3f} x read_len B, each further group p "
-          f"{model['p']:.1f} + q {model['q']:.4f} x read_len B", flush=True)
+          f"{model['p']:.1f} + q {model['q']:.4f} x read_len B, the neighbor "
+          f"pass c {model['c']:.1f} + d {model['d']:.3f} x read_len B",
+          flush=True)
     print(json.dumps({"card": card, "runs": runs, "fit": model}))
 
 

@@ -281,3 +281,78 @@ def test_release_device_returns_memory(cuda_device):
         al.release_device()
         assert al.arrays is None
         assert torch.cuda.memory_allocated(cuda_device) == base
+
+
+#: the seed-stage options, each alone: (index seed length, AlignConfig
+#: fields, paired)
+SEED_OPTIONS = {
+    "seed64_over_32mer_index": (32, {"seed_len": 64}, False),
+    "index64": (64, {"seed_len": 64}, False),
+    "neighbors": (32, {"neighborhood_size_threshold": 100}, False),
+    "neighbors_seed16": (16, {"seed_len": 16,
+                              "neighborhood_size_threshold": 100}, False),
+    "scatter_se": (32, {"scatter_repeats": True}, False),
+    "scatter_pe": (32, {"scatter_repeats": True}, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", list(SEED_OPTIONS))
+def test_seed_options_card_equals_cpu(cuda_device, option):
+    """64-mer seeds (over a 32-mer index and a 64-mer index), the neighbor
+    pass (at k=32 and off at k=16) and --scatter-repeats (single-end and
+    paired) on the card against the CPU: the records' core fields equal
+    (MAPQ: floor flips only), the banded SW kernel launched on the card."""
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner
+    from isaac_aligner_tpu_torch.align.pairs import TlsStatic
+    from isaac_aligner_tpu_torch.align.pipeline import (AlignConfig,
+                                                        default_seed_offsets)
+    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch
+
+    k, fields, paired = SEED_OPTIONS[option]
+    rng = np.random.default_rng(9)
+    # exact repeat copies give exact score ties for --scatter-repeats
+    genome = synthetic.make_genome(rng, 250_000,
+                                   families=((600, 10, 0.0), (400, 12, 0.02)),
+                                   n_island=(150_000, 500))
+    index = build_index(genome, seed_len=k)
+    seed_len = fields.get("seed_len", 32)
+    cfg = AlignConfig(**{"seed_offsets": default_seed_offsets(100, seed_len),
+                         **fields})
+    n = 2048
+    if paired:
+        sp = synthetic.make_pairs(rng, genome.codes, n)
+        reads = (sp.bases1, sp.bases2)
+    else:
+        reads = (synthetic.make_reads(rng, genome.codes, n).bases,)
+    names = [f"t{i}" for i in range(n)]
+
+    def batches():
+        return tuple(ReadBatch(names=names, bases=b.copy(),
+                               quals=np.full(b.shape, 30, np.uint8),
+                               lengths=np.full(n, 100, np.int32))
+                     for b in reads)
+
+    out = []
+    for dev in (cuda_device, "cpu"):
+        if paired:
+            al = PairedAligner.create(index, read_len=100, cfg=cfg, device=dev)
+            al.tls = TlsStatic(min=150, max=500, mate_min=150, mate_max=500,
+                               best0=1, best1=6, median=300)
+        else:
+            al = Aligner.create(index, read_len=100, cfg=cfg, device=dev)
+        before = sw.banded_sw.launches
+        recs = al.align_to_sam(*batches())
+        out.append((recs, sw.banded_sw.launches - before))
+    (gpu, n_g), (cpu, n_c) = out
+    assert n_g > 0 and n_c == 0
+
+    def core(r):
+        return (r.qname, r.flag, r.pos, r.cigar, r.tags.get("NM"), r.rnext,
+                r.pnext, r.tlen)
+    assert [core(r) for r in gpu] == [core(r) for r in cpu]
+    dq = np.array([abs(g.mapq - c.mapq) for g, c in zip(gpu, cpu)])
+    assert dq.max() <= 1 and (dq > 0).sum() <= 0.005 * len(dq)
+    assert np.mean([r.is_mapped for r in gpu]) > 0.7

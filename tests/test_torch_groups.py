@@ -267,7 +267,9 @@ def wf_inputs(tmp_path_factory) -> Path:
             r2 = jdna.revcomp(codes[p + t - READ_LEN:p + t])
             f1.write(f"@q{i}\n{jdna.decode(r1)}\n+\n{qs}\n")
             f2.write(f"@q{i}\n{jdna.decode(r2)}\n+\n{qs}\n")
-    for out, extra in (("gidx", ["--group-limit", "40000"]), ("aidx", [])):
+    for out, extra in (("gidx", ["--group-limit", "40000"]), ("aidx", []),
+                       ("gidx64", ["--group-limit", "40000", "-s", "64",
+                                   "--dont-annotate"])):
         assert tcli(["sort-reference", "-g", str(d / "ref.fa"), "-o",
                      str(d / out), "--device", "cpu"] + extra) == 0
     return d
@@ -284,6 +286,8 @@ CASES = {
     "group_major_se": ({"reference": "{d}/gidx"}, False, True),
     "group_major_pe": ({"reference": "{d}/gidx"}, True, True),
     "annotated_index_se": ({"reference": "{d}/aidx"}, False, False),
+    "grouped_64mer_se": ({"reference": "{d}/gidx64", "seed_len": 64}, False,
+                         False),
 }
 
 
@@ -333,10 +337,11 @@ def test_workflow_bam_equals_jax(wf_inputs, tmp_path, monkeypatch, case):
         assert state["tls"] == jstate["tls"]
 
 
+@pytest.mark.parametrize("threshold", [0, 100])
 def test_budget_follows_read_length_and_groups(wf_inputs, tmp_path,
-                                               monkeypatch):
+                                               monkeypatch, threshold):
     """The group-major decision asks for the budget of this run's batch
-    size, read length and group count."""
+    size, read length, group count and neighbor pass."""
     d = wf_inputs
     asked = []
 
@@ -349,27 +354,36 @@ def test_budget_follows_read_length_and_groups(wf_inputs, tmp_path,
         wf.AlignWorkflow(wf.WorkflowOptions(
             reference=str(d / "gidx"), output_dir=str(tmp_path / "t"),
             fastq1=str(d / "r1.fq"), fastq2=str(d / "r2.fq"), batch_size=64,
-            tls_batches=2, records_per_bin=10_000, device="cpu")).run()
-    assert asked == [("cpu", 64, READ_LEN, 3)]
+            tls_batches=2, records_per_bin=10_000,
+            neighborhood_size_threshold=threshold, device="cpu")).run()
+    assert asked == [("cpu", 64, READ_LEN, 3, threshold > 0)]
 
 
-# (templates, read length, groups resident, bytes): the largest and the
-# smallest single-end and paired peaks that scripts/torch_working_set.py
-# measured on an H100 80GB HBM3 (700 W) beside the planes
+# (templates, read length, groups resident, neighbor pass, bytes): the
+# largest and the smallest single-end and paired peaks that
+# scripts/torch_working_set.py measured on an H100 80GB HBM3 (700 W) beside
+# the planes, and chip_smoke.py phase 13's paired run with the neighbor pass
 MEASURED_WORKING_SETS = [
-    (65_536, 251, 2, 2_227_697_664),
-    (8_192, 100, 2, 139_672_576),
-    (32_768, 100, 1, 578_778_112),
-    (4_096, 251, 2, 413_939_712),
-    (32_768, 251, 2, 1_187_687_424),
+    (65_536, 251, 2, False, 2_227_960_320),
+    (8_192, 100, 2, False, 139_672_576),
+    (32_768, 100, 1, False, 578_778_112),
+    (4_096, 251, 2, False, 413_939_712),
+    (32_768, 251, 2, False, 1_187_687_424),
+    (65_536, 251, 1, True, 5_530_464_256),
+    (8_192, 100, 1, True, 359_502_848),
+    (32_768, 100, 1, True, 1_419_504_612),
 ]
 
 
-@pytest.mark.parametrize("templates,read_len,groups,measured",
+@pytest.mark.parametrize("templates,read_len,groups,neighbors,measured",
                          MEASURED_WORKING_SETS)
 def test_working_set_model_covers_measurements(templates, read_len, groups,
-                                               measured):
-    model = wf.batch_working_set(templates, read_len, groups)
+                                               neighbors, measured):
+    model = wf.batch_working_set(templates, read_len, groups, neighbors)
     assert measured <= model
-    assert wf.batch_working_set(templates, read_len + 50, groups) > model
-    assert wf.batch_working_set(templates, read_len, groups + 1) > model
+    assert wf.batch_working_set(templates, read_len + 50, groups,
+                                neighbors) > model
+    assert wf.batch_working_set(templates, read_len, groups + 1,
+                                neighbors) > model
+    if not neighbors:
+        assert wf.batch_working_set(templates, read_len, groups, True) > model

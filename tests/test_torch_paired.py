@@ -4,7 +4,8 @@ the CPU: TLS learning, SAM records on a fixture with proper, shadow
 golden paired snapshot, and sorted.bam/.bai/.md5 byte-equal to the JAX
 workflow's in every paired case (defaults, --tls, --mate-drift-range,
 --bam-pessimistic-mapq, --mapq-threshold, several bins, in-process
-conversion, a FASTQ lane directory), resume from a JAX TlsDone state, the
+conversion, a FASTQ lane directory, --scatter-repeats with the neighbor
+pass), resume from a JAX TlsDone state, the
 CLI with -2, and unequal read counts."""
 
 import dataclasses
@@ -393,6 +394,12 @@ CASES = {
     "several_bins": ({"records_per_bin": 60}, {}),
     "in_process": ({}, {"ISAAC_TPU_OUTPUT_PROC": "0"}),
     "lane_dir": ({"fastq1": "LANES", "fastq2": None}, {}),
+    # the --scatter-repeats pair pick and the neighbor pass, on the
+    # fixture's exact 300 bp repeat (a given TLS: no learning phase)
+    "scatter_neighbors": ({"scatter_repeats": True,
+                           "neighborhood_size_threshold": 100,
+                           "tls_override": "230:300:370:20:20:1:6"},
+                          {"ISAAC_TPU_OUTPUT_PROC": "0"}),
 }
 
 

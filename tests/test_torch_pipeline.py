@@ -132,17 +132,3 @@ def test_compact_indices_is_fixed_size_nonzero(size):
     (want,) = jnp.nonzero(jnp.asarray(mask), size=size, fill_value=40)
     got = tpipe._compact_indices(torch.from_numpy(mask), size)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize("change", [
-    {"seed_len": 64, "seed_offsets": (0,)},
-    {"neighborhood_size_threshold": 100},
-    {"scatter_repeats": True},
-])
-def test_options_not_ported_raise(change):
-    index, bases, quals, cfg = _tiny_fixture()
-    tarr = tpipe.prepare_index(index, "cpu", upload_codes=True)
-    tcfg = dataclasses.replace(_to_port_cfg(cfg), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.align_batch(tarr, torch.from_numpy(bases),
-                          torch.from_numpy(quals), tcfg)

@@ -104,6 +104,10 @@ def _env(env: dict):
 
 
 def _opts(mod, d: Path, out: Path, **kw):
+    """Options of `mod`'s workflow on the inputs in `d`; a `reference` in
+    `kw` names an entry of `d`."""
+    if "reference" in kw:
+        kw = {**kw, "reference": str(d / kw["reference"])}
     base = dict(reference=str(d / "ref.fa"), output_dir=str(out),
                 fastq1=str(d / "r1.fq"), batch_size=BATCH)
     if mod is wf:
@@ -111,14 +115,30 @@ def _opts(mod, d: Path, out: Path, **kw):
     return mod.WorkflowOptions(**{**base, **kw})
 
 
+_IN_PROCESS = {"ISAAC_TPU_OUTPUT_PROC": "0"}
+
 CASES = {
     "defaults": ({}, {}),
     "several_bins": ({"records_per_bin": 40}, {}),
     "unaligned_front": ({"keep_unaligned": "front"}, {}),
     "unaligned_discard": ({"keep_unaligned": "discard"}, {}),
     "realign_no": ({"realign_gaps": "no"}, {}),
-    "in_process": ({}, {"ISAAC_TPU_OUTPUT_PROC": "0"}),
+    "in_process": ({}, _IN_PROCESS),
+    # 64-mer seeds over the FASTA's 32-mer index (extension check), and
+    # against the port's `sort-reference -s 64` directory (four key planes)
+    "seed64_fasta": ({"seed_len": 64}, _IN_PROCESS),
+    "seed64_index": ({"reference": "idx64", "seed_len": 64}, _IN_PROCESS),
+    "neighbors": ({"neighborhood_size_threshold": 100}, _IN_PROCESS),
 }
+
+
+def _sort_reference_64(d: Path) -> None:
+    """d/idx64: the port's sort-reference -s 64 of d/ref.fa, annotated on
+    the CPU."""
+    from isaac_aligner_tpu_torch.cli import main as cli
+    if not (d / "idx64").exists():
+        assert cli(["sort-reference", "-g", str(d / "ref.fa"), "-o",
+                    str(d / "idx64"), "-s", "64", "--device", "cpu"]) == 0
 
 
 @pytest.fixture(scope="module")
@@ -129,6 +149,8 @@ def ran(inputs, tmp_path_factory):
     def get(case: str):
         if case not in done:
             kw, env = CASES[case]
+            if kw.get("reference") == "idx64":
+                _sort_reference_64(inputs)
             outs = []
             for mod in (jwf, wf):
                 out = tmp_path_factory.mktemp(f"{case}_{mod.__name__[:18]}")
@@ -166,6 +188,8 @@ def test_bam_equals_jax_workflow(case, ran):
         assert build["bins"] > 1
     if case == "realign_no":
         assert build["realigned"] == 0
+    if case.startswith("seed64"):
+        assert ms["aligned"] >= 0.6 * ms["total_reads"]
 
 
 def test_resume_gives_the_same_bytes(inputs, ran, tmp_path):
