@@ -82,14 +82,29 @@ their path against its plain torch version.  Phases, one line each:
      banded_sw as phase 12; one 32,768-read library batch with the
      threshold, whose seed stage reports neighbor hits (> 0); and card vs
      CPU on 4,096 reads or pairs for each option alone (-s 64 over the
-     FASTA, the threshold, --scatter-repeats single-end and paired).
+     FASTA, the threshold, --scatter-repeats single-end and paired);
+ 14. SPMD library: 32,768 of phase 5's reads and 32,768 of phase 7's pairs
+     through ShardedAligner and ShardedPairedAligner over meshes of cuda:0
+     entries, (data 1, shard 2), (2, 2) and (1, 2) genome-sharded, every
+     result field equal to Aligner / PairedAligner on the card; prints a
+     batch's wall and dispatch ms, sharded and single; banded_sw checked
+     and timed at the sharded runs' mean pairs per launch; then
+     mark_duplicates_collective over four cuda:0 entries on phase 7's
+     524,288 records equals mark_duplicates_batch with no overflow;
+ 15. multi-process workflow: scripts/torch_multihost_dryrun.py on phase
+     7's pairs, two processes on the card (dist_processes=2, gloo control)
+     against one uniform_bins process: sorted.bam, .bai and .md5
+     byte-equal, merged stats counts equal; prints each process's stage
+     split; banded_sw checked and timed at the two processes' mean pairs
+     per launch.
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
 Then one JSON line of kernel results (launches: the workflows' runs of
-phases 5, 7, 10, 11, 12 and 13), the card line, and the last line {"ok":
-true, "device": {...}}.
+phases 5, 7, 10, 11, 12 and 13, phase 14's sharded runs and phase 15's
+two processes), the card line, and the last line {"ok": true, "device":
+{...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
 
@@ -101,11 +116,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -130,6 +147,7 @@ if __name__ != "__mp_main__":
                                                          find_neighbors)
     from isaac_aligner_tpu_torch.index.neighbors_device import \
         find_neighbors_device
+    from isaac_aligner_tpu_torch.io import bgzf
     from isaac_aligner_tpu_torch.io.bam import read_bam
     from isaac_aligner_tpu_torch.io.fastq import ReadBatch, read_fastq
     from isaac_aligner_tpu_torch.io.sam import write_sam
@@ -153,6 +171,11 @@ GROUP_LIMIT = 2_400_000     # two groups of four 575 kbp contigs
 GM_SUBSET = 32_768          # reads run resident and group-major (phase 10)
 PLANTED = 20_000            # planted k-mers of the annotation check
 NB_THRESHOLD = 100          # phase 13's --neighborhood-size-threshold
+SPMD_READS = 32_768         # phase 14: reads (and pairs) a library batch
+# phase 14's meshes: (data, shard, genome-sharded)
+SPMD_MESHES = ((1, 2, False), (2, 2, False), (1, 2, True))
+DEDUP_DEVICES = 4           # phase 14's collective dedup
+MH_RECORDS_PER_BIN = 262_144    # phase 15: two uniform bins
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
 
@@ -302,7 +325,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/13] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/15] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -357,7 +380,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/13] slice: {genome.total_length} bp genome, "
+    print(f"[4/15] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -381,7 +404,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/13] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/15] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -430,13 +453,13 @@ def phase_workflow(args, genome, index, card: str, tmp: Path):
                                              genome, sim)
     read_s = time.perf_counter() - t0
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
-    print(f"[5/13] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+    print(f"[5/15] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
           f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
           f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
           f"realigned {build['realigned']}); aligned {aligned_frac:.4f}, "
           f"within 8 bp of truth {placed_frac:.4f}, banded_sw launches "
-          f"{launches}; native host libraries {libs}; read_bam {read_s:.1f} "
+          f"{launches}; native host libraries {libs}; BAM check {read_s:.1f} "
           f"s, setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the workflow never launched the banded_sw kernel")
@@ -445,6 +468,46 @@ def phase_workflow(args, genome, index, card: str, tmp: Path):
 
 def stage_split(ms: dict) -> str:
     return ", ".join(f"{k} {v:.2f} s" for k, v in ms["stage_seconds"].items())
+
+
+class BamCore(NamedTuple):
+    """The fields of a BAM record that the placement checks read."""
+    qname: str
+    flag: int
+    rname: str
+    pos: int            # 1-based, as SamRecord's
+
+    @property
+    def is_mapped(self) -> bool:
+        return not self.flag & 4
+
+
+def read_bam_core(path: Path) -> tuple[list, list]:
+    """(contigs, records) of a BAM as `read_bam` gives them, each record
+    with its name, flag, contig and position only: the bases, qualities,
+    CIGAR and tags are skipped, which read_bam decodes in Python at ~20 us
+    a record."""
+    data = bgzf.decompress(Path(path).read_bytes())
+    if data[:4] != b"BAM\x01":
+        raise AssertionError(f"{path} is not a BAM file")
+    off = 8 + struct.unpack_from("<i", data, 4)[0]
+    n_ref = struct.unpack_from("<i", data, off)[0]
+    off += 4
+    refs = []
+    for _ in range(n_ref):
+        l_name = struct.unpack_from("<i", data, off)[0]
+        refs.append((data[off + 4:off + 3 + l_name].decode(),
+                     struct.unpack_from("<i", data, off + 4 + l_name)[0]))
+        off += 8 + l_name
+    names = [name for name, _len in refs]
+    recs = []
+    while off < len(data):
+        size, ref_id, pos, l_rn = struct.unpack_from("<iiiB", data, off)
+        flag = struct.unpack_from("<H", data, off + 18)[0]
+        recs.append(BamCore(data[off + 36:off + 35 + l_rn].decode(), flag,
+                            names[ref_id] if ref_id >= 0 else "*", pos + 1))
+        off += 4 + size
+    return refs, recs
 
 
 def check_se_bam(out: Path, genome, sim) -> tuple[float, float]:
@@ -463,7 +526,7 @@ def read_se_bam(out: Path, genome, sim) -> tuple[np.ndarray, np.ndarray]:
     """A single-end run's sorted.bam: one record a read, coordinate order,
     .bai and .md5; returns (mapped, within 8 bp of the truth in global
     coordinates), bool arrays in read order."""
-    _text, refs, recs = read_bam(out)
+    refs, recs = read_bam_core(out)
     offsets = {c.name: c.offset for c in genome.contigs}
     ref_index = {name: i for i, (name, _len) in enumerate(refs)}
     mapped = np.array([r.is_mapped for r in recs])
@@ -542,7 +605,7 @@ def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
     flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
-    print(f"[6/13] card vs CPU: workflow on {WF_SUBSET} reads, "
+    print(f"[6/15] card vs CPU: workflow on {WF_SUBSET} reads, "
           f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
           f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
           flush=True)
@@ -578,7 +641,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     finder = stats["state"]["stats"].get("match_finder", {})
     work = ms["device_work"]
     n = PE_PAIRS
-    print(f"[7/13] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
+    print(f"[7/15] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
           f"{2 * n / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s, {build['bins']} bin(s), "
@@ -588,7 +651,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
           f"{finder.get('anomalous_pairs')}, rescue_skipped "
           f"{finder.get('rescue_skipped', 0)}; banded_sw launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
-          f"{work['rescue_calls']} calls; {working}; read_bam {read_s:.1f} s, "
+          f"{work['rescue_calls']} calls; {working}; BAM check {read_s:.1f} s, "
           f"setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the paired workflow never launched banded_sw")
@@ -612,7 +675,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     # 5 calls: each enqueues ~140 kernels, and more than the device's
     # launch queue holds behind the sleep would make the host wait
     rescue_ms = cuda_ms(rescue, 5)
-    print(f"[7/13] rescue_shadows at the run's shape ({rows} rows x {window} "
+    print(f"[7/15] rescue_shadows at the run's shape ({rows} rows x {window} "
           f"offsets x {READ_LEN} bases, damaged mates, found {found:.3f}): "
           f"{rescue_ms:.4f} ms a call, {work['rescue_calls']} calls in the "
           f"run", flush=True)
@@ -620,7 +683,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     n_pe = max(1, round(work["sw_pairs"] / launches))
     timing = check_and_time(rng, al.device, n_pe, READ_LEN, sw.BWA_SCORES,
                             True)
-    print(f"[7/13] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
+    print(f"[7/15] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
           f"{work['sw_pairs']} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -648,9 +711,11 @@ def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
     """A paired run's sorted.bam: two records a pair, coordinate order,
     .bai and .md5, per end >= 0.95 aligned and within 8 bp of the truth
     (global coordinates), proper pairs on >= 0.90 of the undamaged near
-    pairs and on no far one, >= 0.80 of the damaged mates rescued, and the
-    learned TLS; returns the TLS and a summary line."""
-    _text, refs, recs = read_bam(out)
+    pairs and on no far one whose mate holds no N (an N-island mate has no
+    place of its own, and the rescue sets it beside read 1 as the JAX
+    package does, ROADMAP §C5), >= 0.80 of the damaged mates rescued, and
+    the learned TLS; returns the TLS and a summary line."""
+    refs, recs = read_bam_core(out)
     offsets = {c.name: c.offset for c in genome.contigs}
     ref_index = {name: i for i, (name, _len) in enumerate(refs)}
     n = sp.start1.shape[0]
@@ -673,6 +738,7 @@ def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
                       else len(recs))
     tls = pairs.TlsStatic(**stats["state"]["tls"])
     normal = ~sp.damaged & ~sp.far
+    far = sp.far & ~(sp.bases2 == 4).any(axis=1)
     proper_frac = float(proper[normal].mean())
     rescued_frac = float(placed[1, sp.damaged].mean())
     if len(recs) != 2 * n:
@@ -686,9 +752,9 @@ def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
         if mapped[e].mean() < 0.95 or placed[e].mean() < 0.95:
             raise AssertionError(f"read {e + 1}: aligned {mapped[e].mean()}, "
                                  f"placed {placed[e].mean()} < 0.95")
-    if proper_frac < 0.90 or proper[sp.far].any():
+    if proper_frac < 0.90 or proper[far].any():
         raise AssertionError(f"proper pairs {proper_frac} of the near pairs, "
-                             f"{int(proper[sp.far].sum())} far")
+                             f"{int(proper[far].sum())} far")
     if rescued_frac < 0.80:
         raise AssertionError(f"rescued {rescued_frac} < 0.80 of the damaged "
                              f"mates")
@@ -698,7 +764,9 @@ def check_paired_bam(out: Path, genome, sp, stats: dict) -> dict:
         f"aligned {mapped[0].mean():.4f}/{mapped[1].mean():.4f}, within 8 bp "
         f"{placed[0].mean():.4f}/{placed[1].mean():.4f} (read 1/read 2); "
         f"proper {proper_frac:.4f} of {int(normal.sum())} undamaged near "
-        f"pairs, {int(proper[sp.far].sum())} of {int(sp.far.sum())} far; "
+        f"pairs, {int(proper[far].sum())} of {int(far.sum())} far (and "
+        f"{int(proper[sp.far & ~far].sum())} of {int((sp.far & ~far).sum())} "
+        f"with an N-island mate); "
         f"rescued {rescued_frac:.4f} of {int(sp.damaged.sum())} damaged "
         f"mates")}
 
@@ -755,7 +823,7 @@ def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
         al.tls = tls
         lib[device] = pair_core(al.align_to_sam(*batches()))
     flips = compare_pairs("paired library", lib["cuda"], lib["cpu"], PE_LIB)
-    print(f"[8/13] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
+    print(f"[8/15] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
           f"{learned} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
           f"tlen equal, MAPQ floor flips {wf_flips}; library on {PE_LIB} "
           f"pairs, equal, MAPQ floor flips {flips}", flush=True)
@@ -856,7 +924,7 @@ def phase_sort_reference(args, card: str, tmp: Path):
         if not np.array_equal(got, want):
             raise AssertionError(f"planted {k}-mers: card != CPU")
         planted.append(f"k={k} {int(got.sum())} of {got.size} in {k_s:.3f} s")
-    print(f"[9/13] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
+    print(f"[9/15] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
           f"bp, --group-limit {GROUP_LIMIT}: {len(names)} groups in "
           f"{cli_s:.2f} s (CLI process); {'; '.join(rows)}; contig 0 "
           f"({int(km.size)} unique 32-mers): card {int(dev_bits.sum())} "
@@ -893,8 +961,9 @@ def group_major(released: list | None = None):
 def print_kernel_at(phase: str, what: str, rng, pairs_sw: int,
                     launches: int) -> None:
     """The kernel against its plain version, and timed, at the mean pairs
-    per launch that a run gave it (each group of a grouped run polishes its
-    own rows, so its launches are smaller than a single index's)."""
+    per launch that a run gave it (each group of a grouped run and each
+    process polishes its own rows, so their launches are smaller than a
+    single index's)."""
     n_g = max(1, round(pairs_sw / launches))
     timing = check_and_time(rng, torch.device("cuda"), n_g, READ_LEN,
                             sw.BWA_SCORES, True)
@@ -933,8 +1002,8 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
     groups = "; ".join(f"{g['records']} records, {g['plane_bytes']} B of "
                        f"planes, upload {g['upload_seconds']:.3f} s"
                        for g in ms["groups"])
-    print(f"[10/13] grouped workflow: {WF_READS} reads on {N_CONTIGS} contigs "
-          f"in 2 groups, FASTQ->BAM {WF_READS / wall:.1f} reads/s "
+    print(f"[10/15] grouped workflow: {WF_READS} reads on {N_CONTIGS} "
+          f"contigs in 2 groups, FASTQ->BAM {WF_READS / wall:.1f} reads/s "
           f"({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
           f"duplicates {build['duplicates']}, realigned {build['realigned']}"
@@ -944,7 +1013,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
           f"banded_sw launches {launches} "
           f"({ms['device_work']['sw_pairs']} pairs); groups: {groups}; card "
           f"free {free} of {total} B [{card}]", flush=True)
-    print_kernel_at("10/13", "grouped run", rng,
+    print_kernel_at("10/15", "grouped run", rng,
                     ms["device_work"]["sw_pairs"], launches)
 
     run_workflow(tmp / "idx8", tmp / "g_sub.fq", tmp / "g_res", "cuda", BATCH)
@@ -963,7 +1032,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
         raise AssertionError(f"allocated after each release {released}, "
                              f"baseline {base}")
     uploads = [g["upload_seconds"] for g in st["MatchSelectorStats"]["groups"]]
-    print(f"[10/13] {GM_SUBSET} reads resident and group-major: sorted.bam "
+    print(f"[10/15] {GM_SUBSET} reads resident and group-major: sorted.bam "
           f"equal; allocated {released} B after the releases, baseline "
           f"{base} B; group-major uploads {uploads} s", flush=True)
     return launches
@@ -995,14 +1064,14 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
     if ms.get("group_major") is not False or launches <= 0:
         raise AssertionError(f"group_major {ms.get('group_major')}, "
                              f"launches {launches}")
-    print(f"[11/13] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
+    print(f"[11/15] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
           f"{m['summary']}; banded_sw launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
           f"{work['rescue_calls']} calls; {working} [{card}]", flush=True)
-    print_kernel_at("11/13", "grouped paired run", rng, work["sw_pairs"],
+    print_kernel_at("11/15", "grouped paired run", rng, work["sw_pairs"],
                     launches)
 
     runs = {}
@@ -1020,7 +1089,7 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
                              f"{runs['cpu'][0]}")
     flips = compare_pairs("grouped paired workflow", runs["cuda"][1],
                           runs["cpu"][1], PE_SUBSET)
-    print(f"[11/13] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
+    print(f"[11/15] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
           f"equal, qname/flag/pos/cigar/NM/rnext/pnext/tlen equal, MAPQ floor "
           f"flips {flips}", flush=True)
     return launches
@@ -1081,7 +1150,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
                              "build_index")
     if not np.array_equal(disk.has_neighbors, bits.astype(np.uint8)):
         raise AssertionError("sort-reference -s 64: neighbor bits differ")
-    print(f"[12/13] sort-reference -s 64: {genome.total_length} bp, "
+    print(f"[12/15] sort-reference -s 64: {genome.total_length} bp, "
           f"{disk.num_records} records in {cli_s:.2f} s (CLI process); in "
           f"memory build {build_s:.2f} s, annotation on the card "
           f"{annot_s:.2f} s, flagged {float(bits.mean()):.4f}; planes and "
@@ -1104,7 +1173,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
     placed_aligned = float(placed[mapped].mean())
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
     finder = stats["state"]["stats"].get("match_finder", {})
-    print(f"[12/13] workflow -s 64 against the 64-mer index: {WF_READS} "
+    print(f"[12/15] workflow -s 64 against the 64-mer index: {WF_READS} "
           f"reads, FASTQ->BAM {WF_READS / wall:.1f} reads/s ({wall:.2f} s; "
           f"align_seconds {ms['align_seconds']:.2f} s: {stage_split(ms)}; "
           f"build_seconds {build['build_seconds']:.2f} s); aligned "
@@ -1122,11 +1191,11 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
                              f"< 0.95")
     if launches <= 0:
         raise AssertionError("the 64-mer workflow never launched banded_sw")
-    print_kernel_at("12/13", "64-mer run", rng, ms["device_work"]["sw_pairs"],
+    print_kernel_at("12/15", "64-mer run", rng, ms["device_work"]["sw_pairs"],
                     launches)
     flips, _ = se_card_vs_cpu(tmp, tmp / "idx64", tmp / "subset.fq", "sub64",
                               WF_SUBSET, seed_len=64)
-    print(f"[12/13] card vs CPU, -s 64 against the 64-mer index: workflow on "
+    print(f"[12/15] card vs CPU, -s 64 against the 64-mer index: workflow on "
           f"{WF_SUBSET} reads, qname/flag/pos/cigar/NM equal, MAPQ floor "
           f"flips {flips}", flush=True)
     return launches
@@ -1154,7 +1223,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     m = check_paired_bam(tmp / "pe_opts" / "sorted.bam", genome, sp, stats)
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
     work = ms["device_work"]
-    print(f"[13/13] paired workflow with --neighborhood-size-threshold "
+    print(f"[13/15] paired workflow with --neighborhood-size-threshold "
           f"{NB_THRESHOLD} --scatter-repeats 1: {PE_PAIRS} pairs, FASTQ->BAM "
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
@@ -1166,7 +1235,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     if launches <= 0:
         raise AssertionError("the options' paired workflow never launched "
                              "banded_sw")
-    print_kernel_at("13/13", "options' paired run", rng, work["sw_pairs"],
+    print_kernel_at("13/15", "options' paired run", rng, work["sw_pairs"],
                     launches)
 
     # one library batch with the threshold: the seed stage's neighbor hits
@@ -1187,7 +1256,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     al.release_device()
     if nb.sum() <= 0:
         raise AssertionError("the neighbor pass found no hit")
-    print(f"[13/13] library batch of {BATCH} reads with the threshold: "
+    print(f"[13/15] library batch of {BATCH} reads with the threshold: "
           f"{int(nb.sum())} neighbor hits on {int((nb > 0).sum())} reads, "
           f"aligned {aligned:.4f}, FASTQ->SAM {BATCH / lib_s:.1f} reads/s",
           flush=True)
@@ -1209,10 +1278,225 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     tls, flips = pe_card_vs_cpu(tmp, "pe_scatter", scatter_repeats=True)
     rows.append(f"paired --scatter-repeats 1: TLS {tls} equal, MAPQ floor "
                 f"flips {flips}")
-    print(f"[13/13] card vs CPU, each option alone on {WF_SUBSET} reads or "
+    print(f"[13/15] card vs CPU, each option alone on {WF_SUBSET} reads or "
           f"pairs, core fields equal: {'; '.join(rows)}; the single-end hash "
           f"pick moved {moved} reads off the default run's placement",
           flush=True)
+    return launches
+
+
+def spmd_diff(want: dict, got: dict) -> tuple[list, int]:
+    """(result fields of two drivers' align_batch_arrays that differ, rows
+    set aside): every field the single-device result has, with the
+    candidate grids compared in their valid slots (the padding follows the
+    concatenated hit lists) and the device clip fields off the rows
+    rescued in the program (the single-device driver re-clips those on
+    the host).  An end's fields are also set aside on the rows where the
+    single-device driver applied its pre-rescue device clip to a
+    disjoined row that the rescue moved (ROADMAP §C4, a reference fault
+    that the single-device path keeps for byte-equality)."""
+    bad = [k for k in want if k not in got]
+    stale = {sfx: got["rescued" + sfx] & want["sa_do" + sfx].astype(bool)
+             for sfx in ("_1", "_2") if "rescued" + sfx in got}
+    for k in sorted(set(want) & set(got)):
+        a, c = want[k], got[k]
+        sfx = k[len(k.rstrip("_12")):]
+        if isinstance(a, list):     # CIGARs
+            rows = stale.get(sfx, np.zeros(len(a), bool))
+            if len(a) != len(c) or any(x != y for x, y, s in zip(a, c, rows)
+                                       if not s):
+                bad.append(k)
+            continue
+        if not isinstance(a, np.ndarray) or a.ndim == 0:
+            if a != c:
+                bad.append(k)
+            continue
+        keep = ~stale.get(sfx, np.zeros(a.shape[0], bool))
+        if k.startswith("cand_") and not k.startswith("cand_valid"):
+            keep = want["cand_valid" + sfx] & got["cand_valid" + sfx]
+        elif k.startswith("sa_") and "rescued" + sfx in got:
+            keep = keep & ~got["rescued" + sfx]
+        if keep.ndim < a.ndim:
+            keep = np.broadcast_to(
+                keep.reshape(keep.shape + (1,) * (a.ndim - keep.ndim)),
+                a.shape)
+        if a.shape != c.shape or not np.array_equal(np.where(keep, a, 0),
+                                                    np.where(keep, c, 0)):
+            bad.append(k)
+    return bad, int(sum(v.sum() for v in stale.values()))
+
+
+def timed_batch(al, inputs) -> tuple[dict, float, float]:
+    """(align_batch_arrays result, its wall ms, the dispatch's ms between
+    CUDA events: the device program with the host's enqueue gaps) of one
+    batch, after a warm-up call."""
+    al.align_batch_arrays(*inputs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    al._dispatch(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    dispatch_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    res = al.align_batch_arrays(*inputs)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, dispatch_ms
+
+
+def phase_spmd(args, genome, index, sim, sp, tls, card: str,
+               tmp: Path) -> int:
+    """The SPMD library over meshes of cuda:0 entries: ShardedAligner and
+    ShardedPairedAligner against Aligner and PairedAligner on the card,
+    every result field equal, and banded_sw held to its plain version at
+    the sharded runs' mean pairs per launch; then collective duplicate
+    marking over four entries against the per-bin marker on phase 7's
+    records.  Returns the kernel's launches in the sharded runs."""
+    from isaac_aligner_tpu_torch.build.dedup import (_dup_classes,
+                                                     coordinate_sort_order,
+                                                     mark_duplicates_batch,
+                                                     mark_duplicates_collective)
+    from isaac_aligner_tpu_torch.build.records import concat
+    from isaac_aligner_tpu_torch.build.storage import BinnedFragmentStore
+    from isaac_aligner_tpu_torch.parallel.sharded import Mesh, collective_dedup
+    from isaac_aligner_tpu_torch.parallel.sharded_aligner import (
+        ShardedAligner, ShardedPairedAligner)
+
+    cuda0 = torch.device("cuda", 0)
+    names = [f"t{i}" for i in range(SPMD_READS)]
+
+    def batch(bases):
+        return ReadBatch(names=list(names), bases=bases[:SPMD_READS].copy(),
+                         quals=np.full((SPMD_READS, READ_LEN), 30, np.uint8),
+                         lengths=np.full(SPMD_READS, READ_LEN, np.int32))
+    launches, pairs_sw, rows = 0, 0, []
+    for paired, inputs in ((False, (batch(sim.bases),)),
+                           (True, (batch(sp.bases1), batch(sp.bases2)))):
+        single = (PairedAligner if paired else Aligner).create(
+            index, read_len=READ_LEN, device="cuda")
+        if paired:
+            single.tls = tls
+        want, wall1, disp1 = timed_batch(single, inputs)
+        single.release_device()
+        what = "paired" if paired else "single-end"
+        rows.append(f"{what} single device: batch {wall1:.1f} ms, dispatch "
+                    f"{disp1:.1f} ms")
+        for data, shard, gs in SPMD_MESHES:
+            mesh = Mesh([[cuda0] * shard for _ in range(data)])
+            cls = ShardedPairedAligner if paired else ShardedAligner
+            al = cls.create_sharded(index, mesh=mesh, read_len=READ_LEN,
+                                    genome_sharded=gs)
+            if paired:
+                al.tls = tls
+            sw.banded_sw.launches = 0
+            got = al.align_batch_arrays(*inputs)
+            launches += sw.banded_sw.launches
+            pairs_sw += al.sw_pairs
+            bad, n_stale = spmd_diff(want, got)
+            mode = f"({data}, {shard}){' genome-sharded' if gs else ''}"
+            if bad:
+                raise AssertionError(f"{what} sharded {mode} != single "
+                                     f"device on {bad}")
+            if paired and int(got["rescue_dropped"]):
+                raise AssertionError(f"{what} {mode}: rescue dropped "
+                                     f"{int(got['rescue_dropped'])} rows")
+            _res, wall, disp = timed_batch(al, inputs)
+            stale_note = (f" ({n_stale} stale-clip row ends set aside, "
+                          f"§C4)" if paired else "")
+            rows.append(f"{what} {mode}: {len(want)} fields equal"
+                        f"{stale_note}, batch {wall:.1f} ms, dispatch "
+                        f"{disp:.1f} ms")
+            del al
+    torch.cuda.empty_cache()
+    print(f"[14/15] SPMD library, {SPMD_READS} reads and {SPMD_READS} pairs "
+          f"over meshes of cuda:0 entries (a batch through "
+          f"align_batch_arrays, wall, after a warm-up; the dispatch between "
+          f"CUDA events): {'; '.join(rows)}; banded_sw launches {launches} "
+          f"({pairs_sw} pairs) [{card}]", flush=True)
+    if launches <= 0:
+        raise AssertionError("the sharded drivers never launched banded_sw")
+    print_kernel_at("14/15", "SPMD library", np.random.default_rng(
+        args.seed + 14), pairs_sw, launches)
+
+    # collective duplicate marking on phase 7's records, in Build order
+    bins = tmp / "pe_wf" / "Temp" / "bins"
+    parts = [BinnedFragmentStore.load_bin(d) for d in sorted(
+        bins.glob("bin_*"))]
+    parts += list(BinnedFragmentStore.iter_chunk_groups(bins / "unaligned",
+                                                        1 << 30))
+    fb = concat(parts)
+    fb = fb.take(coordinate_sort_order(fb))
+    mesh = Mesh([[cuda0] * DEDUP_DEVICES])
+    t0 = time.perf_counter()
+    want = mark_duplicates_batch(fb.take(np.arange(len(fb))),
+                                 genome.contig_offsets)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = mark_duplicates_collective(fb.take(np.arange(len(fb))), mesh)
+    coll_s = time.perf_counter() - t0
+    _flags, overflow = collective_dedup(
+        mesh, fb.anchor_self, fb.anchor_mate, fb.dup_rank, fb.dup_tie,
+        _dup_classes(fb), fb.rg)
+    dups = int(((want.flag & 0x400) != 0).sum())
+    if len(fb) != 2 * PE_PAIRS or not np.array_equal(got.flag, want.flag):
+        raise AssertionError(f"collective dedup of {len(fb)} records != "
+                             f"mark_duplicates_batch")
+    if int(overflow.sum()):
+        raise AssertionError(f"collective dedup overflow {overflow}")
+    print(f"[14/15] collective dedup over {DEDUP_DEVICES} cuda:0 entries: "
+          f"{len(fb)} records of phase 7, flags equal to "
+          f"mark_duplicates_batch ({dups} duplicates), overflow 0; "
+          f"collective {coll_s:.3f} s, per-bin (host numpy) {batch_s:.3f} s",
+          flush=True)
+    return launches
+
+
+def phase_multihost(args, tmp: Path, card: str) -> int:
+    """scripts/torch_multihost_dryrun.py on phase 7's pairs: a
+    single-process uniform_bins workflow on the card, then two processes
+    (dist_processes=2, gloo control) sharing it; sorted.bam, .bai and .md5
+    byte-equal and the merged stats counts equal; banded_sw held to its
+    plain version at the two processes' mean pairs per launch.  Returns
+    the two processes' kernel launches."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, str(root / "scripts" / "torch_multihost_dryrun.py"),
+         "--device", "cuda", "--out", str(tmp / "mh"),
+         "--reference", str(tmp / "idx"), "--fastq1", str(tmp / "pe1.fq"),
+         "--fastq2", str(tmp / "pe2.fq"), "--batch-size", str(BATCH),
+         "--records-per-bin", str(MH_RECORDS_PER_BIN), "--timeout", "300"],
+        cwd=root, capture_output=True, text=True, timeout=420)
+    lines = proc.stdout.splitlines()
+    if proc.returncode:
+        raise AssertionError(f"multi-process dry run rc={proc.returncode}: "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    procs = [json.loads(ln) for ln in lines if ln.startswith('{"process"')]
+    result = json.loads([ln for ln in lines
+                         if ln.startswith('{"byte_identical"')][-1])
+    if not (result["byte_identical"] and result["counts_equal"]) or \
+            sorted(p["process"] for p in procs) != [0, 1]:
+        raise AssertionError(f"multi-process dry run: {result}")
+    launches = sum(p["launches"] for p in procs)
+    pairs_sw = sum(p["sw_pairs"] for p in procs)
+    if min(p["launches"] for p in procs) <= 0:
+        raise AssertionError(f"a process never launched banded_sw: {procs}")
+    split = "; ".join(
+        f"process {p['process']}: align_seconds {p['align_seconds']:.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in p['stage_seconds'].items())}"
+        f"), banded_sw launches {p['launches']} ({p['sw_pairs']} pairs)"
+        for p in procs)
+    ms = result["counts"]["match_selector"]
+    print(f"[15/15] multi-process workflow: {PE_PAIRS} pairs, 2 processes on "
+          f"the card with gloo control against one uniform_bins process: "
+          f"sorted.bam ({result['bam_bytes']} B), .bai and .md5 "
+          f"byte-equal, counts equal (total_reads {ms['total_reads']}, "
+          f"aligned {ms['aligned']}, proper_pairs {ms['proper_pairs']}); "
+          f"single process {result['single_s']:.2f} s, two processes "
+          f"{result['multi_s']:.2f} s (their start included); {split} "
+          f"[{card}]", flush=True)
+    print_kernel_at("15/15", "multi-process workflow",
+                    np.random.default_rng(args.seed + 15), pairs_sw, launches)
     return launches
 
 
@@ -1227,14 +1511,14 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/13] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/15] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/13] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/15] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
@@ -1267,12 +1551,19 @@ def main() -> None:
         done("12")
         opt_launches = phase_seed_options(args, genome, sim, sp, card, Path(d))
         done("13")
+        spmd_launches = phase_spmd(args, genome, index, sim, sp, tls, card,
+                                   Path(d))
+        done("14")
+        mh_launches = phase_multihost(args, Path(d), card)
+        done("15")
     counts = (("single-end workflow", se_launches),
               ("paired workflow", pe_launches),
               ("grouped single-end workflow", gse_launches),
               ("grouped paired workflow", gpe_launches),
               ("64-mer workflow", i64_launches),
-              ("paired workflow with the seed options", opt_launches))
+              ("paired workflow with the seed options", opt_launches),
+              ("SPMD library", spmd_launches),
+              ("multi-process workflow", mh_launches))
     launches = sum(c for _, c in counts)
     per_phase = ", ".join(f"{p} {e - s:.1f} s" for (_, s), (p, e)
                           in zip([("", 0.0)] + ends, ends))

@@ -206,14 +206,16 @@ def end_mapping_score(end: dict, best_index, log_rog_read: float):
 
 def align_paired_batch(arrays: IndexArrays, bases1, quals1, bases2, quals2,
                        cfg: AlignConfig, tls: TlsStatic,
-                       tail_masked1=None, tail_masked2=None) -> dict:
+                       tail_masked1=None, tail_masked2=None, find_fn=None,
+                       score_fn=None, clip_fn=None) -> dict:
     """Paired-end alignment of one read-pair batch on the arrays' device
     (TemplateBuilder::buildTemplate, TemplateBuilder.cpp:90-140): the best
     TLS-compatible pair, or independent single-end picks for rows without
-    one; shadow and disjoined rows are flagged for the host rescue.
+    one; shadow and disjoined rows are flagged for the host rescue.  The
+    hooks are `align_batch`'s (pipeline.py).
 
     Returns a dict of per-end tensors (suffix _1/_2) and pair tensors."""
-    from .pipeline import (quality_trim_device, score_end,
+    from .pipeline import (find_seed_hits, quality_trim_device, score_end,
                            semialigned_clip_device)
 
     b, l1 = bases1.shape
@@ -232,15 +234,16 @@ def align_paired_batch(arrays: IndexArrays, bases1, quals1, bases2, quals2,
             bases1, quals1, cfg.quality_trim_cutoff, tm1)
         bases2, quals2, qt2 = quality_trim_device(
             bases2, quals2, cfg.quality_trim_cutoff, tm2)
-    end1 = score_end(arrays, cfg, bases1, quals1)
-    end2 = score_end(arrays, cfg, bases2, quals2)
+    find_fn = find_fn or find_seed_hits
+    end1 = score_end(arrays, cfg, bases1, quals1, find_fn, score_fn)
+    end2 = score_end(arrays, cfg, bases2, quals2, find_fn, score_fn)
     out = paired_from_ends(g, l1, l2, cfg, tls, end1, end2)
     out["qtrim_1"] = qt1
     out["qtrim_2"] = qt2
     if cfg.semialigned_clip:
         for sfx, (bb, tm, qt) in (("_1", (bases1, tm1, qt1)),
                                   ("_2", (bases2, tm2, qt2))):
-            sa = semialigned_clip_device(
+            sa = (clip_fn or semialigned_clip_device)(
                 arrays, cfg, bb, out["start" + sfx], out["reverse" + sfx],
                 out["aligned" + sfx], tm + qt)
             out.update({k + sfx: v for k, v in sa.items()})

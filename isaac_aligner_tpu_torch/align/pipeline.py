@@ -267,6 +267,13 @@ def plane_bytes(index: SeedIndex) -> int:
             + 8 * len(index.genome.contigs))
 
 
+def packed_genome_planes(index):
+    """(packed 2-bit, N-bit) host planes of an index's genome: the mmapped
+    ones SeedIndex.save wrote, or packed now."""
+    cached = getattr(index, "_packed_planes", None)
+    return cached if cached is not None else pack_genome(index.genome.codes)
+
+
 def prepare_index(index: SeedIndex, device,
                   upload_codes: bool = False) -> IndexArrays:
     """Upload a host SeedIndex into padded planes on `device`.
@@ -279,11 +286,7 @@ def prepare_index(index: SeedIndex, device,
     dev = require_device(device)
     n = index.num_records
     n_pad = search.pad_pow2(max(n, 1))
-    cached_planes = getattr(index, "_packed_planes", None)
-    if cached_planes is not None:
-        packed, nbits = cached_planes   # mmapped, saved by SeedIndex.save
-    else:
-        packed, nbits = pack_genome(index.genome.codes)
+    packed, nbits = packed_genome_planes(index)
     bucket_starts, _width, _log2 = _cached_bucket_table(index)
     contigs = index.genome.contigs
 
@@ -701,15 +704,18 @@ def _split_seed_passes(cfg: AlignConfig, read_len: int):
     return tuple(p1), tuple(p2)
 
 
-def _find_hits_two_pass(arrays: IndexArrays, cfg: AlignConfig, bases):
+def _find_hits_two_pass(arrays: IndexArrays, cfg: AlignConfig, bases,
+                        find_fn=find_seed_hits):
     """Two-pass seed escalation (see AlignConfig.first_pass_seeds): reads
     without a clean, agreeing pass-1 anchor are compacted into a
     batch*second_pass_fraction sub-batch and searched with the remaining
-    seeds."""
+    seeds.  `find_fn` is the hit source: the whole index here, the index
+    shards with their hit lists gathered in `parallel/sharded.py` (k-mer
+    runs never straddle shards, so the decisions here are the same)."""
     b = bases.shape[0]
     dev = bases.device
     p1, p2 = _split_seed_passes(cfg, bases.shape[1])
-    s1, o1, v1, c1, diag1 = find_seed_hits(
+    s1, o1, v1, c1, diag1 = find_fn(
         arrays, dataclasses.replace(cfg, seed_offsets=p1), bases)
 
     has_clean = (v1 & c1).any(dim=1)
@@ -725,7 +731,7 @@ def _find_hits_two_pass(arrays: IndexArrays, cfg: AlignConfig, bases):
     ridx = _compact_indices(incomplete, b2)
     rvalid = ridx < b
     sub_bases = bases[torch.clamp(ridx, max=b - 1)]
-    s2, o2, v2, c2, _diag2 = find_seed_hits(
+    s2, o2, v2, c2, _diag2 = find_fn(
         arrays, dataclasses.replace(cfg, seed_offsets=p2), sub_bases)
     v2 = v2 & rvalid[:, None]
 
@@ -751,14 +757,16 @@ def _find_hits_two_pass(arrays: IndexArrays, cfg: AlignConfig, bases):
     return start_f, orient_f, valid_f, clean_f, diag1
 
 
-def _gather_candidates(arrays: IndexArrays, cfg: AlignConfig, bases):
-    """Stages A+B: seed hits -> deduped candidate grid [B, K]."""
+def _gather_candidates(arrays: IndexArrays, cfg: AlignConfig, bases,
+                       find_fn=find_seed_hits):
+    """Stages A+B: seed hits (from `find_fn`) -> deduped candidate grid
+    [B, K]."""
     _p1, p2 = _split_seed_passes(cfg, bases.shape[1])
     if cfg.first_pass_seeds > 0 and p2:
         start_f, orient_f, valid_f, clean_f, diag_a = _find_hits_two_pass(
-            arrays, cfg, bases)
+            arrays, cfg, bases, find_fn)
     else:
-        start_f, orient_f, valid_f, clean_f, diag_a = find_seed_hits(
+        start_f, orient_f, valid_f, clean_f, diag_a = find_fn(
             arrays, cfg, bases)
     cand_start, cand_orient, cand_valid, cand_clean, support, diag_b = \
         dedup_candidates(start_f, orient_f, valid_f, clean_f, cfg.max_candidates)
@@ -852,10 +860,11 @@ def _score_ungapped(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
 
 def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
                         cand_start, cand_orient, cand_valid, diag,
-                        well_anchored=None):
-    """Stages C+D: score candidates, pick best, MAPQ (single-end)."""
+                        well_anchored=None, score_fn=None):
+    """Stages C+D: score candidates (`score_fn`, by default the ungapped
+    scorer), pick best, MAPQ (single-end)."""
     b, read_len = bases.shape
-    log_prob, mismatches, edit_distance, dropped = _score_ungapped(
+    log_prob, mismatches, edit_distance, dropped = (score_fn or _score_ungapped)(
         arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid)
 
     # best candidate: lowest mismatch count, then highest log-prob
@@ -928,12 +937,14 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
 def score_candidates(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
                      cand_start, cand_orient, cand_valid, well_anchored,
                      num_candidates, scored_overflow,
-                     pass2_dropped_mask=None, finder_stats=None) -> dict:
+                     pass2_dropped_mask=None, finder_stats=None,
+                     score_fn=None) -> dict:
     """Stage C on a gathered candidate grid -> the per-end dict of the pair
     resolver: start, orient, valid, cid, log_prob, sw_score, edit, obs_len,
-    all [B, C]."""
+    all [B, C].  `score_fn` is the window scorer (the genome-sharded mode
+    scores each shard's own candidates and sums them)."""
     b, read_len = bases.shape
-    log_prob, mismatches, edit_distance, dropped = _score_ungapped(
+    log_prob, mismatches, edit_distance, dropped = (score_fn or _score_ungapped)(
         arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid)
     # located by the middle base: edge-overhanging candidates belong to the
     # contig that holds most of the read
@@ -962,15 +973,16 @@ def score_candidates(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
     }
 
 
-def score_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals) -> dict:
+def score_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
+              find_fn=find_seed_hits, score_fn=None) -> dict:
     """Stages A+B+C for one read end: deduped, scored candidate lists."""
     cand_start, cand_orient, cand_valid, well_anchored, diag = \
-        _gather_candidates(arrays, cfg, bases)
+        _gather_candidates(arrays, cfg, bases, find_fn)
     return score_candidates(
         arrays, cfg, bases, quals, cand_start, cand_orient, cand_valid,
         well_anchored, diag["num_candidates"], diag["scored_overflow"],
         pass2_dropped_mask=diag.get("pass2_dropped_mask"),
-        finder_stats=_finder_stats_from_diag(diag))
+        finder_stats=_finder_stats_from_diag(diag), score_fn=score_fn)
 
 
 def quality_trim_device(bases, quals, cutoff: int, tail_masked):
@@ -1066,12 +1078,16 @@ def semialigned_clip_device(arrays: IndexArrays, cfg: AlignConfig, bases,
 
 
 def align_batch(arrays: IndexArrays, bases: torch.Tensor, quals: torch.Tensor,
-                cfg: AlignConfig, tail_masked=None) -> dict:
+                cfg: AlignConfig, tail_masked=None, find_fn=find_seed_hits,
+                score_fn=None, clip_fn=None) -> dict:
     """Single-end alignment of one read batch on the arrays' device.
 
     bases/quals are uint8 [B, L]; tail_masked is an optional int32 [B]
     count of 3' bases already masked on the host (adapter clipping).
     Returns the dict of the JAX `align_batch`: the same keys and dtypes.
+    The hooks (the seed hit source, the window scorer and the semialigned
+    clip) default to this device's own; the SPMD programs of
+    `parallel/sharded.py` swap in their sharded ones.
     """
     b = bases.shape[0]
     if tail_masked is None:
@@ -1081,12 +1097,13 @@ def align_batch(arrays: IndexArrays, bases: torch.Tensor, quals: torch.Tensor,
         bases, quals, qtrim = quality_trim_device(
             bases, quals, cfg.quality_trim_cutoff, tail_masked)
     cand_start, cand_orient, cand_valid, well_anchored, diag = \
-        _gather_candidates(arrays, cfg, bases)
+        _gather_candidates(arrays, cfg, bases, find_fn)
     res = finalize_single_end(arrays, cfg, bases, quals, cand_start,
-                              cand_orient, cand_valid, diag, well_anchored)
+                              cand_orient, cand_valid, diag, well_anchored,
+                              score_fn=score_fn)
     res["qtrim"] = qtrim
     if cfg.semialigned_clip:
-        res.update(semialigned_clip_device(
+        res.update((clip_fn or semialigned_clip_device)(
             arrays, cfg, bases, res["start"], res["reverse"], res["aligned"],
             tail_masked + qtrim))
     return res

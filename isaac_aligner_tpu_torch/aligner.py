@@ -382,9 +382,7 @@ class PairedAligner:
         for b1, b2 in batches:
             rows = []
             for b in (b1, b2):
-                end = score_end(self.arrays, self.cfg,
-                                _upload(b.bases, self.device),
-                                _upload(b.quals, self.device))
+                end = self._score_end(b)
                 rows += [end["num_candidates"].to(torch.int64),
                          end["start"][:, 0].to(torch.int64),
                          end["orient"][:, 0].to(torch.int64)]
@@ -397,6 +395,12 @@ class PairedAligner:
         stats = learner.finalize()
         self.tls = TlsStatic.from_stats(stats)
         return self.tls
+
+    def _score_end(self, batch: ReadBatch) -> dict:
+        """Scored candidate lists of one end's raw batch (TLS learning)."""
+        return score_end(self.arrays, self.cfg,
+                         _upload(batch.bases, self.device),
+                         _upload(batch.quals, self.device))
 
     # -- alignment ----------------------------------------------------------
 

@@ -17,8 +17,9 @@ Semantics reproduced:
   keep=False, reference --keep-duplicates/--mark-duplicates).
 
 The port's own copy of the columnar path of `isaac_aligner_tpu/build/
-dedup.py` (`coordinate_sort_order`, `mark_duplicates_batch`), unchanged.
-`mark_duplicates_collective` comes with SPMD (ROADMAP queue A item 7).
+dedup.py` (`coordinate_sort_order`, `mark_duplicates_batch`), unchanged,
+and `mark_duplicates_collective`, the Build phase's marker under
+`--devices N` (parallel/sharded.collective_dedup).
 """
 
 from __future__ import annotations
@@ -91,6 +92,47 @@ def mark_duplicates_batch(fb, contig_offsets, keep: bool = True,
                         & (fb.anchor_mate[p] == fb.anchor_mate[q]))
         dup[g_order[same]] = True
 
+    fb.flag = np.where(dup, fb.flag | sam.FLAG_DUPLICATE,
+                       fb.flag).astype(np.uint16)
+    if keep:
+        return fb
+    return fb.take(np.nonzero(~dup)[0])
+
+
+def mark_duplicates_collective(fb, mesh, keep: bool = True, lib=None):
+    """Duplicate marking over every device of `mesh` (in row order): the
+    grouping and rank/tie pick of mark_duplicates_batch, run by
+    parallel.sharded.collective_dedup (records route to their anchor's
+    owner device, owners sort and mark, flags route home).  Rows are
+    padded to a multiple of the device count with skipped records; rows
+    over a device's receive capacity stay unmarked, and a log line says
+    how many."""
+    import numpy as np
+
+    from ..parallel.sharded import collective_dedup
+
+    n = len(fb)
+    if n == 0:
+        return fb
+    cls = _dup_classes(fb)
+    lib = fb.rg.astype(np.int64) if lib is None else np.asarray(lib, np.int64)
+    n_dev = len(mesh.flat)
+    pad = (-n) % n_dev
+
+    def padded(v, fill=0):
+        v = np.asarray(v, np.int64)
+        return np.concatenate([v, np.full(pad, fill, np.int64)]) if pad else v
+
+    flags, overflow = collective_dedup(
+        mesh, padded(fb.anchor_self), padded(fb.anchor_mate),
+        padded(fb.dup_rank), padded(fb.dup_tie), padded(cls, -1),
+        padded(lib))
+    dup = flags[:n]
+    n_over = int(overflow.sum())
+    if n_over:
+        from ..utils import tracing
+        tracing.log(f"collective dedup: {n_over} rows overflowed receive "
+                    f"capacity and were kept unmarked", force=True)
     fb.flag = np.where(dup, fb.flag | sam.FLAG_DUPLICATE,
                        fb.flag).astype(np.uint16)
     if keep:

@@ -108,6 +108,11 @@ def _cmd_align(args) -> int:
         bam_exclude_tags=args.bam_exclude_tags,
         records_per_bin=args.records_per_bin,
         memory_limit=args.memory_limit,
+        devices=args.devices,
+        shard_genome=args.shard_genome,
+        dist_coordinator=args.dist_coordinator,
+        dist_processes=args.dist_processes,
+        dist_process_id=args.dist_process_id,
         keep_unaligned=args.keep_unaligned,
         mapq_threshold=args.mapq_threshold,
         gapped_mismatches=args.gapped_mismatches,
@@ -243,6 +248,26 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("--bam-exclude-tags", default="ZX,ZY",
                     help="comma list of tags to drop from output BAMs "
                          "(all,none,AS,BC,NM,OC,RG,SM,ZX,ZY; manual.md:274)")
+    al.add_argument("--devices", type=int, default=0,
+                    help="SPMD over an N-device (data, shard) mesh: the "
+                         "index shards across devices and duplicate "
+                         "marking runs collectively (-1 = all visible "
+                         "cards; 0/1 = single device; with --device cpu, "
+                         "N entries of the CPU)")
+    al.add_argument("--shard-genome", action="store_true",
+                    help="with --devices: position-shard the packed "
+                         "genome planes too (each device holds G/S + "
+                         "halo bases)")
+    al.add_argument("--dist-coordinator", default=None,
+                    help="multi-process: process 0's gloo address "
+                         "host:port (every process runs the same command; "
+                         "see --dist-processes)")
+    al.add_argument("--dist-processes", type=int, default=0,
+                    help="multi-process: number of processes (>1 enables "
+                         "them; each aligns every N-th batch on its own "
+                         "devices, process 0 writes the BAM)")
+    al.add_argument("--dist-process-id", type=int, default=-1,
+                    help="multi-process: this process's id (0-based)")
     al.add_argument("--memory-limit", type=float, default=0.0,
                     help="GB budget for the Build phase: genomic bins are "
                          "sized so one bin fits (reference --memory-limit)")

@@ -25,10 +25,23 @@ of these.  More than one index aligns through `parallel/multi_index.py`
 with every group's planes on the card, or group-major (one group at a
 time) when the planes exceed `device_memory_budget`.
 
+`--devices N` aligns over an N-device [data, shard] mesh
+(`parallel/sharded_aligner.py`; `--shard-genome` position-shards the
+genome planes too) and marks duplicates collectively in the Build phase.
+`--dist-processes P` runs P processes (`parallel/multihost.py`): each
+aligns every P-th batch on its own devices (its local mesh under
+`--devices N`) and writes its bin chunks, named by global batch number,
+to the shared Temp/bins; process 0 then writes the reports and runs the
+Build phase alone, so the BAM is byte-equal to a single-process
+`uniform_bins` run with the same `--devices`.  The JAX workflow pads a
+ragged tail with an all-pad batch because its program spans every
+process; here no device work crosses processes, so none is needed.
+
 Options of the JAX workflow that select a path this slice does not run
 raise NotImplementedError naming their ROADMAP item (`check_ported`); none
 of them quietly takes another path.  The aligner runs on `device` ("cuda" by
-default; "cuda" without a card raises before any work).
+default; "cuda" without a card, or more devices than the visible cards,
+raises before any work).
 """
 
 from __future__ import annotations
@@ -178,7 +191,9 @@ class WorkflowOptions:
     records_per_bin: int = 1_000_000
     bam_exclude_tags: str = "ZX,ZY"
     memory_limit: float = 0.0
-    devices: int = 0                    # SPMD: not ported beyond 0/1
+    # SPMD over an N-device [data, shard] mesh (0/1 single device, -1 all
+    # visible devices; on "cpu", N entries of the CPU)
+    devices: int = 0
     shard_genome: bool = False          # SPMD only
     keep_unaligned: str = "back"
     mapq_threshold: int = 0
@@ -216,8 +231,10 @@ class WorkflowOptions:
     base_calls_format: str | None = None
     clusters_at_a_time: int = 0
     tiles_regex: str | None = None      # BCL only
-    dist_coordinator: str | None = None     # multi-host only
-    dist_processes: int = 0             # multi-host: not ported beyond 0/1
+    # multi-process runs: the gloo coordinator host:port, the process count
+    # (> 1 enables them) and this process's id (or ISAAC_TPU_DIST_* env)
+    dist_coordinator: str | None = None
+    dist_processes: int = 0
     dist_process_id: int = -1
     uniform_bins: bool = False
     # the aligner's device: "cuda" (default; raises without a card),
@@ -266,7 +283,8 @@ _NOT_PORTED = (
 
 
 def check_ported(opts: WorkflowOptions) -> None:
-    """Raise NotImplementedError for an option whose path is not ported."""
+    """Raise NotImplementedError for an input option whose path is not
+    ported (BCL run folders, BAM input, sample sheets)."""
     def refuse(what: str, item: int) -> None:
         raise NotImplementedError(
             f"{what} is not ported to isaac_aligner_tpu_torch yet (ROADMAP "
@@ -275,10 +293,6 @@ def check_ported(opts: WorkflowOptions) -> None:
     for name, what, item in _NOT_PORTED:
         if getattr(opts, name):
             refuse(what, item)
-    if opts.devices not in (0, 1):
-        refuse(f"--devices {opts.devices} (SPMD)", 7)
-    if opts.dist_processes > 1:
-        refuse("multi-host runs", 7)
 
 
 class AlignWorkflow:
@@ -303,6 +317,8 @@ class AlignWorkflow:
         return self.temp / "AlignerState.json"
 
     def save_state(self) -> None:
+        if self._dist[1] > 1 and self._dist[0] != 0:
+            return   # process 0 owns the shared state file
         doc = {"state": self.state, "stats": self._stats}
         if self.tls is not None:
             doc["tls"] = dataclasses.asdict(self.tls)
@@ -333,6 +349,56 @@ class AlignWorkflow:
             self.tls = dataclasses.replace(
                 self.tls, mate_min=self.tls.median - d,
                 mate_max=self.tls.median + d)
+
+    @property
+    def _dist(self) -> tuple[int, int]:
+        """(process id, process count): joins the gloo process group on
+        first use when the multi-process options (or ISAAC_TPU_DIST_*
+        env) ask for it."""
+        if getattr(self, "_dist_cached", None) is None:
+            o = self.opts
+            if o.dist_processes > 1 or os.environ.get("ISAAC_TPU_DIST_NPROCS"):
+                from ..parallel.multihost import init_distributed
+                self._dist_cached = init_distributed(
+                    o.dist_coordinator, o.dist_processes or None,
+                    o.dist_process_id if o.dist_process_id >= 0 else None)
+            else:
+                self._dist_cached = (0, 1)
+        return self._dist_cached
+
+    def _n_devices(self) -> int:
+        """--devices resolved: -1 is every visible card (one on "cpu").
+        More than the visible cards raise ValueError."""
+        import torch
+
+        n = self.opts.devices
+        if n in (0, 1):
+            return n
+        dev = require_device(self.opts.device)
+        avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if n == -1:
+            n = avail
+        if dev.type == "cuda" and n > avail:
+            raise ValueError(f"--devices {n}: only {avail} devices visible")
+        return n
+
+    def _mesh(self):
+        """The [data, shard] mesh when --devices asks for SPMD (cached);
+        None on one device.  A multi-process run's mesh is its process's
+        devices in one data row (`multihost.local_mesh`); with one device
+        a process each process runs the single-device drivers, the program
+        of a single-process run, so the BAM equals that run's even where
+        the SPMD drivers differ from them (ROADMAP §C4)."""
+        if self._n_devices() in (0, 1):
+            return None
+        if getattr(self, "_mesh_cached", None) is None:
+            from ..parallel.multihost import local_mesh
+            from ..parallel.sharded import make_mesh
+            dev = require_device(self.opts.device)
+            self._mesh_cached = (local_mesh(self._n_devices(), dev)
+                                 if self._dist[1] > 1
+                                 else make_mesh(self._n_devices(), device=dev))
+        return self._mesh_cached
 
     def _load_indexes(self) -> list[SeedIndex]:
         """One index per comma-separated --reference entry; a grouped
@@ -471,6 +537,14 @@ class AlignWorkflow:
         index = self._load_index()
         indexes = self._load_indexes()
         t0 = time.time()
+        pid, nproc = self._dist
+        mh = nproc > 1
+        mesh = self._mesh()
+        if mesh is not None and self.opts.batch_size % mesh.shape["data"]:
+            # every data row takes an equal share of a batch
+            d = mesh.shape["data"]
+            self.opts = dataclasses.replace(
+                self.opts, batch_size=-(-self.opts.batch_size // d) * d)
         o = self.opts
         stream = self._batch_stream()
         first = next(stream, None)
@@ -511,7 +585,19 @@ class AlignWorkflow:
                          pessimistic_mapq=o.pessimistic_mapq,
                          shadow_scan_range=o.shadow_scan_range)
         groups = None
-        if len(indexes) > 1:
+        if (mh or mesh is not None) and len(indexes) > 1:
+            raise ValueError(
+                "--devices SPMD does not combine with contig-group "
+                "(multi-index) references yet; use a single-group index")
+        if mesh is not None:
+            from ..parallel.sharded_aligner import (ShardedAligner,
+                                                    ShardedPairedAligner)
+            spmd = dict(index=index, mesh=mesh, genome_sharded=o.shard_genome,
+                        **{k: v for k, v in common.items() if k != "device"})
+            aligner = (ShardedPairedAligner.create_sharded(
+                **spmd, **paired_kw) if paired
+                else ShardedAligner.create_sharded(**spmd))
+        elif len(indexes) > 1:
             from ..parallel.multi_index import (MultiIndexAligner,
                                                 MultiIndexPairedAligner)
             from ..utils import tracing
@@ -547,13 +633,21 @@ class AlignWorkflow:
         n_bins = max(1, -(-self._estimate_total_reads() * ends
                           // records_per_bin))
         bins_dir = self.temp / "bins"
-        if bins_dir.exists():
+        if mh:
+            from ..parallel import multihost
+            if pid == 0 and bins_dir.exists():
+                shutil.rmtree(bins_dir)
+            multihost.barrier("bins_cleared")
+        elif bins_dir.exists():
             shutil.rmtree(bins_dir)
         store = DistributionBinStore(
             bins_dir, genome.contig_offsets, genome.total_length, n_bins,
             sample_cap=max(records_per_bin, 4 * o.batch_size * ends),
-            ram_cache_records=records_per_bin if o.buffer_bins else 0,
-            pre_sort=o.pre_sort_bins, uniform=o.uniform_bins)
+            # multi-process: every process cuts the same (uniform) bins,
+            # and a process's RAM cache cannot serve process 0's Build
+            ram_cache_records=(0 if mh else
+                               records_per_bin if o.buffer_bins else 0),
+            pre_sort=o.pre_sort_bins, uniform=mh or o.uniform_bins)
         # the Build phase reuses the RAM chunk cache when it runs in this
         # process (resume-from-disk falls back to the files)
         self._bin_cache = store
@@ -576,6 +670,8 @@ class AlignWorkflow:
                 gidx += 1
                 if nxt is None:
                     return
+                if mh and gidx % nproc != pid:
+                    continue   # another process's stripe
                 b1, b2, _bc = nxt
                 # names stay columnar/lazy; conversion needs the count
                 sidecar.append((b1.names, b1.n_valid, gidx))
@@ -612,7 +708,7 @@ class AlignWorkflow:
             t_host["convert"] += time.perf_counter() - t1
 
         batches = prefetch_iter(feed(), depth=max(1, o.input_parallel_load))
-        if op.enabled():
+        if op.enabled() and not mh:
             proc = op.OutputProcess(dict(
                 bins_dir=str(bins_dir),
                 contig_offsets=np.asarray(genome.contig_offsets),
@@ -663,9 +759,27 @@ class AlignWorkflow:
                     writer.submit(inputs, res)
             finally:
                 writer.close()
-            store.finalize()
+            store.finalize(write_meta=not mh or pid == 0)
+        if mh:
+            # totals over the processes (each counted its own rows once);
+            # every chunk is on disk before the barrier lets process 0
+            # into the Build phase
+            from ..parallel.multihost import allsum_stats, barrier
+            merged = allsum_stats({k: stats[k] for k in (
+                "total_reads", "aligned", "perfect", "proper_pairs",
+                "mapq_hist")})
+            for k, v in merged.items():
+                stats[k] = v if k == "mapq_hist" else int(v)
+            fs = aligner.finder_stats
+            if fs:
+                ints = {k: v for k, v in fs.items() if isinstance(v, int)}
+                for k, v in allsum_stats(ints).items():
+                    fs[k] = int(v)
+                fs.pop("tally", None)   # per-process batch lists
+            barrier("align_done")
 
         if per_tile:
+            # multi-process: this process's stripe of tiles
             stats["tiles"] = [
                 {"lane": lane, "tile": tile, "barcode": sample,
                  "read": read, **agg}
@@ -886,8 +1000,15 @@ class AlignWorkflow:
         o = self.opts
         fb = fb.take(coordinate_sort_order(fb))
         if o.mark_duplicates:
-            fb = mark_duplicates_batch(fb, genome.contig_offsets,
-                                       keep=o.keep_duplicates)
+            # a multi-process Build runs on process 0 alone: per-bin dedup
+            mesh = self._mesh() if self._dist[1] == 1 else None
+            if mesh is not None:
+                from ..build.dedup import mark_duplicates_collective
+                fb = mark_duplicates_collective(fb, mesh,
+                                                keep=o.keep_duplicates)
+            else:
+                fb = mark_duplicates_batch(fb, genome.contig_offsets,
+                                           keep=o.keep_duplicates)
         realigned = 0
         if o.realign_gaps != "no":
             changed = realign_batch(fb, genome,
@@ -1066,6 +1187,13 @@ class AlignWorkflow:
         if self.state not in transitions:
             raise RuntimeError(f"cannot step from {self.state}")
         fn, next_state = transitions[self.state]
+        pid, nproc = self._dist
+        if nproc > 1 and pid != 0 and self.state in ("AlignDone",
+                                                     "ReportsDone"):
+            # process 0 writes the reports and runs the Build phase over
+            # every process's chunks; the others wait at the end barrier
+            def fn():
+                return None
         with tracing.phase(f"workflow {self.state} -> {next_state}"):
             fn()
         self.state = next_state
@@ -1100,6 +1228,7 @@ class AlignWorkflow:
         # the card (or the CPU) must exist before any work: "cuda" without
         # a card raises here, never falls back
         require_device(self.opts.device)
+        self._n_devices()
         self._check_base_calls_format()
         self._fit_batch_size()
         if resume:
@@ -1109,3 +1238,6 @@ class AlignWorkflow:
         while STATES.index(self.state) < STATES.index(stop_at):
             self.step()
             self.save_state()
+        if self._dist[1] > 1:
+            from ..parallel.multihost import barrier
+            barrier("workflow_done")

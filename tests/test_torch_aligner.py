@@ -185,8 +185,9 @@ def test_port_runs_without_jax(tmp_path):
     """What the GPU machine sees: neither jax nor the JAX package.  The
     library slice and the workflow (FASTQ -> sorted BAM, single-end and
     paired-end, with its spawned output process, which re-runs this
-    script's top) run on cpu, and the paired workflow again against a
-    two-group reference from the port's sort-reference, group-major."""
+    script's top) run on cpu, the paired workflow again against a
+    two-group reference from the port's sort-reference, group-major, and
+    over a four-entry mesh with the genome sharded."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -264,6 +265,17 @@ def test_port_runs_without_jax(tmp_path):
             assert len(grp) == 96
             assert {r.rname for r in grp if r.is_mapped} == {"sim0", "sim1"}
             assert sum(r.flag & 0x2 != 0 for r in grp) >= 72
+            # the SPMD workflow over four cpu entries, genome-sharded, and
+            # the multi-process module
+            from isaac_aligner_tpu_torch.parallel import multihost
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "idx"), output_dir=str(d / "spmd"),
+                fastq1=str(d / "p1.fq"), fastq2=str(d / "p2.fq"),
+                batch_size=32, devices=4, shard_genome=True,
+                device="cpu")).run()
+            assert (d / "spmd" / "sorted.bam").read_bytes() == \
+                (d / "pe" / "sorted.bam").read_bytes()
+            assert multihost.init_distributed() == (0, 1)
             loaded = {m.split(".")[0] for m in sys.modules
                       if sys.modules[m] is not None}
             assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded

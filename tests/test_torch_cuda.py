@@ -356,3 +356,103 @@ def test_seed_options_card_equals_cpu(cuda_device, option):
     dq = np.array([abs(g.mapq - c.mapq) for g, c in zip(gpu, cpu)])
     assert dq.max() <= 1 and (dq > 0).sum() <= 0.005 * len(dq)
     assert np.mean([r.is_mapped for r in gpu]) > 0.7
+
+
+def _spmd_fixture(n=1024):
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.index.build import build_index
+
+    rng = np.random.default_rng(13)
+    genome = synthetic.make_genome(rng, 250_000, families=((600, 10, 0.02),),
+                                   n_island=(150_000, 500))
+    index = build_index(genome, seed_len=32)
+    sp = synthetic.make_pairs(rng, genome.codes, n)
+    return index, sp
+
+
+def _spmd_batches(sp, paired: bool):
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch
+
+    n = sp.bases1.shape[0]
+    names = [f"t{i}" for i in range(n)]
+    reads = (sp.bases1, sp.bases2) if paired else (sp.bases1,)
+    return tuple(ReadBatch(names=names, bases=b.copy(),
+                           quals=np.full(b.shape, 30, np.uint8),
+                           lengths=np.full(n, 100, np.int32)) for b in reads)
+
+
+SPMD_KEYS = {
+    False: ("aligned", "start", "reverse", "edit_distance", "mismatches"),
+    True: ("aligned_1", "aligned_2", "start_1", "start_2", "reverse_1",
+           "reverse_2", "proper_pair", "template_length", "edit_distance_1",
+           "edit_distance_2")}
+SPMD_SCORES = {False: ("mapq",),
+               True: ("frag_score_1", "frag_score_2", "template_score")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["single", "paired", "genome_sharded"])
+def test_sharded_programs_card_equal_cpu(cuda_device, program):
+    """The sharded drivers over meshes of cuda:0 entries against the same
+    meshes of cpu entries: integer fields and CIGARs equal, scores to floor
+    flips, and the banded SW kernel launched on the card only.  (2, 2)
+    meshes for the index-sharded programs, (1, 2) for the genome-sharded
+    paired one."""
+    from isaac_aligner_tpu_torch.align.pairs import TlsStatic
+    from isaac_aligner_tpu_torch.parallel.sharded import Mesh
+    from isaac_aligner_tpu_torch.parallel.sharded_aligner import (
+        ShardedAligner, ShardedPairedAligner)
+
+    index, sp = _spmd_fixture()
+    paired = program != "single"
+    gs = program == "genome_sharded"
+    data, shard = (1, 2) if gs else (2, 2)
+    tls = TlsStatic(min=150, max=500, mate_min=150, mate_max=500, best0=1,
+                    best1=6, median=300)
+    out = []
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        mesh = Mesh([[dev] * shard for _ in range(data)])
+        assert mesh.shape == {"data": data, "shard": shard}
+        cls = ShardedPairedAligner if paired else ShardedAligner
+        al = cls.create_sharded(index, mesh=mesh, read_len=100,
+                                genome_sharded=gs)
+        if paired:
+            al.tls = tls
+        before = sw.banded_sw.launches
+        res = al.align_batch_arrays(*_spmd_batches(sp, paired))
+        out.append((res, sw.banded_sw.launches - before))
+    (g, n_g), (c, n_c) = out
+    assert n_g > 0 and n_c == 0
+    for k in SPMD_KEYS[paired]:
+        np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(c[k]),
+                                      err_msg=k)
+    for sfx in ("_1", "_2") if paired else ("",):
+        assert g["cigar" + sfx] == c["cigar" + sfx]
+    for k in SPMD_SCORES[paired]:
+        d = np.abs(np.asarray(g[k], np.int64) - np.asarray(c[k], np.int64))
+        assert d.max() <= 1 and (d > 0).sum() <= 0.005 * d.size, k
+    aligned = g["aligned_1"] if paired else g["aligned"]
+    assert np.mean(aligned) > 0.9
+    if paired:
+        assert np.mean(g["proper_pair"]) > 0.85
+
+
+@pytest.mark.cuda
+def test_collective_dedup_card_equals_cpu(cuda_device):
+    """collective_dedup over four cuda:0 entries equals four cpu entries,
+    with no overflow at the default capacity."""
+    from isaac_aligner_tpu_torch.parallel.sharded import collective_dedup
+
+    rng = np.random.default_rng(17)
+    n = 65_536
+    args = (rng.integers(0, 4_000, n).astype(np.int64) * 2,
+            rng.integers(0, 4_000, n).astype(np.int64) * 2,
+            rng.integers(0, 1 << 40, n).astype(np.int64),
+            rng.integers(0, 1 << 40, n).astype(np.int64),
+            rng.integers(-1, 4, n).astype(np.int64),
+            np.zeros(n, np.int64))
+    got, over_g = collective_dedup([cuda_device] * 4, *args)
+    want, over_c = collective_dedup(["cpu"] * 4, *args)
+    np.testing.assert_array_equal(got, want)
+    assert over_g.sum() == over_c.sum() == 0
+    assert 0 < got.sum() < n

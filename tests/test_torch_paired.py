@@ -312,6 +312,36 @@ def test_rescue_window_over_cap_is_counted(fixture):
         jal.finder_stats["rescue_skipped"] > 0
 
 
+@pytest.mark.parametrize("n_bases", [99, 100], ids=["one_base", "all_n"])
+def test_n_mate_is_rescued_as_proper_pair(fixture, n_bases):
+    """ROADMAP §C5: a mate of N bases (a read from an N island) has no
+    place of its own, yet the shadow rescue sets it beside read 1 and the
+    pair comes out proper, in the JAX package and in the port alike (the
+    rescue counts no N as a mismatch)."""
+    index = fixture[0]
+    g = index.genome.codes
+    mate = np.full(L, 4, np.uint8)
+    mate[37:37 + L - n_bases] = 2
+    tls = dict(min=151, max=451, mate_min=151, mate_max=451, best0=6,
+               best1=1, median=300)
+    rows = [("nmate", g[5_000:5_000 + L], mate, np.full(L, 30, np.uint8),
+             np.full(L, 30, np.uint8))]
+    jal = jaligner.PairedAligner.create(index, read_len=L)
+    tal = PairedAligner.create(to_port_index(index), read_len=L, device="cpu")
+    jal.tls = jpairs.TlsStatic(**tls)
+    tal.tls = pairs.TlsStatic(**tls)
+    rj = jal.align_batch_arrays(*_batches(rows))
+    rt = tal.align_batch_arrays(*_batches(rows, "port"))
+    for r in (rj, rt):
+        assert bool(r["aligned_2"][0]) and bool(r["proper_pair"][0])
+        assert int(r["start_1"][0]) == 5_000
+        assert abs(int(r["start_2"][0]) - 5_000) <= 451
+        assert int(r["edit_distance_2"][0]) >= n_bases
+    for k in ("start_2", "edit_distance_2", "frag_score_2", "template_length"):
+        assert int(rt[k][0]) == int(rj[k][0]), k
+    assert rt["cigar_2"][0] == rj["cigar_2"][0]
+
+
 def test_create_on_missing_card_raises(fixture):
     index = to_port_index(fixture[0])
     if torch.cuda.is_available():

@@ -245,10 +245,7 @@ def test_options_match_jax_plus_device():
     ({"run_folder": "run"}, 8),
     ({"bam_input": "in.bam"}, 9),
     ({"sample_sheet": "sheet.csv"}, 10),
-    ({"devices": 2}, 7),
-    ({"dist_processes": 2}, 7),
-], ids=["run_folder", "bam_input", "sample_sheet", "devices2",
-        "multi_host"])
+], ids=["run_folder", "bam_input", "sample_sheet"])
 def test_unported_options_raise(inputs, tmp_path, kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue A item {item}"):
