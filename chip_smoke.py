@@ -96,14 +96,41 @@ their path against its plain torch version.  Phases, one line each:
      against one uniform_bins process: sorted.bam, .bai and .md5
      byte-equal, merged stats counts equal; prints each process's stage
      split; banded_sw checked and timed at the two processes' mean pairs
-     per launch.
+     per launch;
+ 16. BCL run folder, demultiplexed: phase 7's 262,144 pairs written with
+     the port's writers as a run folder with cycles y100,i8,y100 (lane 1:
+     four tiles of 32,768 clusters, one .bcl.gz a cycle; lane 2: four
+     tiles in the NextSeq BGZF layout with .bci; .clocs positions; 5% of
+     clusters failing the filter), four samples with 8-base barcodes at
+     Hamming distance >= 3 (1% of clusters one mismatch, 2% random),
+     through AlignWorkflow with the sample sheet and --per-tile-tls on
+     "cuda" at batch 32,768; checks each sample's record count against an
+     independent barcode match, per-end placement, proper pairs, the
+     eight tiles' TLS medians, ZX/ZY against the planted positions, BC
+     against the index reads, .bai and .md5; prints BCL->BAM reads/s and
+     the stage split; banded_sw at the run's shape; card vs CPU on a
+     one-tile run folder of 4,096 clusters (TLS and core fields with RG
+     and BC);
+ 17. BAM input: phase 7's coordinate-sorted sorted.bam (524,288 records)
+     through AlignWorkflow(bam_input=...) on "cuda": checked as phase 7,
+     read 1/read 2 identities kept; prints BAM->BAM reads/s, the stage
+     split, and the seconds and peak RSS of the pairedness probe (the
+     whole BAM read in a fresh process); banded_sw at the run's shape;
+     card vs CPU on phase 8's 4,096-pair BAM;
+ 18. per-barcode driver: 131,072 pairs from FASTQ plus a barcode FASTQ,
+     sample A against phase 5's index (inserts N(300, 50)), B against
+     phase 9's two-group directory (N(500, 50)), C "unmapped", 1/8 of
+     random barcodes against the run's -r; checks each sample's count,
+     A and B placed, their TLS medians, C all unmapped,
+     PerBarcodeStats.json, the card's allocated memory back at its
+     baseline after each sub-workflow, and banded_sw at the run's shape.
 
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
 Then one JSON line of kernel results (launches: the workflows' runs of
-phases 5, 7, 10, 11, 12 and 13, phase 14's sharded runs and phase 15's
-two processes), the card line, and the last line {"ok": true, "device":
+phases 5, 7, 10, 11, 12, 13, 16, 17 and 18, phase 14's sharded runs and
+phase 15's two processes), the card line, and the last line {"ok": true, "device":
 {...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
@@ -156,6 +183,7 @@ if __name__ != "__mp_main__":
     from isaac_aligner_tpu_torch.workflow import align as wfmod
     from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
                                                         WorkflowOptions)
+    from isaac_aligner_tpu_torch.workflow.per_barcode import PerBarcodeDriver
 
 READ_LEN = 100
 BATCH = 32_768
@@ -176,6 +204,9 @@ SPMD_READS = 32_768         # phase 14: reads (and pairs) a library batch
 SPMD_MESHES = ((1, 2, False), (2, 2, False), (1, 2, True))
 DEDUP_DEVICES = 4           # phase 14's collective dedup
 MH_RECORDS_PER_BIN = 262_144    # phase 15: two uniform bins
+BCL_TILES = (1101, 1102, 1103, 1104)    # phase 16: per lane, two lanes
+BCL_SUBSET = 4_096          # phase 16: clusters of the card-vs-CPU tile
+PB_PAIRS = 131_072          # phase 18: pairs of the per-barcode run
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
 
@@ -325,7 +356,7 @@ def phase_kernel(rng, dev) -> None:
         pass
     else:
         raise AssertionError(f"banded_sw took L={sw.MAX_LEN + 1} > MAX_LEN")
-    print(f"[3/15] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
+    print(f"[3/18] kernel vs plain: banded_sw bit-equal to banded_sw_torch "
           f"(bwa+eland; L in {SW_LENGTHS} at N=896, N in {SW_BATCHES} at "
           f"L={READ_LEN}, band edges 0/15 at N=899) and to numpy on 256 "
           f"pairs; L={sw.MAX_LEN + 1} raises; N={SW_PAIRS} L={READ_LEN}: "
@@ -380,7 +411,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     aligned_frac = float(mapped.mean())
     placed_frac = float(placed.mean())
     gapped_frac = float(gapped[indel_reads].mean())
-    print(f"[4/15] slice: {genome.total_length} bp genome, "
+    print(f"[4/18] slice: {genome.total_length} bp genome, "
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
@@ -404,7 +435,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     # the kernel again at the shape the slice gave it (mean pairs per launch)
     n_main = max(1, round(al.sw_pairs / launches))
     timing = check_and_time(rng, dev, n_main, READ_LEN, sw.BWA_SCORES, True)
-    print(f"[4/15] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
+    print(f"[4/18] banded_sw at the slice's shape (N={n_main} L={READ_LEN}, "
           f"{al.sw_pairs} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -413,12 +444,14 @@ def phase_slice(args, dev, card: str, tmp: Path):
     return genome, index, batches[0], al, timing
 
 
-def run_workflow(index_dir: Path, fastq: Path, out: Path, device: str,
+def run_workflow(index_dir: Path, fastq: Path | None, out: Path, device: str,
                  batch: int, fastq2: Path | None = None, **opts) -> dict:
-    """AlignWorkflow at its defaults (or `opts`); returns the run's Stats
-    JSON files and its saved state (TLS, finder stats)."""
+    """AlignWorkflow at its defaults (or `opts`: another input than FASTQ
+    with `fastq` None); returns the run's Stats JSON files and its saved
+    state (TLS, finder stats)."""
     AlignWorkflow(WorkflowOptions(
-        reference=str(index_dir), output_dir=str(out), fastq1=str(fastq),
+        reference=str(index_dir), output_dir=str(out),
+        fastq1=str(fastq) if fastq else None,
         fastq2=str(fastq2) if fastq2 else None, batch_size=batch,
         device=device, **opts)).run()
     out_stats = {name: json.loads((out / "Stats" / f"{name}.json").read_text())
@@ -453,7 +486,7 @@ def phase_workflow(args, genome, index, card: str, tmp: Path):
                                              genome, sim)
     read_s = time.perf_counter() - t0
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
-    print(f"[5/15] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
+    print(f"[5/18] workflow: {WF_READS} reads, FASTQ->BAM {WF_READS / wall:.1f} "
           f"reads/s ({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
           f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
@@ -605,7 +638,7 @@ def phase_card_vs_cpu(tmp: Path, index, batch: ReadBatch,
         raise AssertionError(f"card vs CPU core fields differ on "
                              f"{len(diff)} rows, e.g. {diff[:3]}")
     flips = mapq_flips((g.mapq, c.mapq) for g, c in zip(gpu, cpu))
-    print(f"[6/15] card vs CPU: workflow on {WF_SUBSET} reads, "
+    print(f"[6/18] card vs CPU: workflow on {WF_SUBSET} reads, "
           f"qname/flag/pos/cigar/NM equal, MAPQ floor flips {wf_flips}; "
           f"library on {len(gpu)} reads, equal, MAPQ floor flips {flips}",
           flush=True)
@@ -641,7 +674,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     finder = stats["state"]["stats"].get("match_finder", {})
     work = ms["device_work"]
     n = PE_PAIRS
-    print(f"[7/15] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
+    print(f"[7/18] paired workflow: {n} pairs, {2 * n} records, FASTQ->BAM "
           f"{2 * n / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s, {build['bins']} bin(s), "
@@ -675,7 +708,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     # 5 calls: each enqueues ~140 kernels, and more than the device's
     # launch queue holds behind the sleep would make the host wait
     rescue_ms = cuda_ms(rescue, 5)
-    print(f"[7/15] rescue_shadows at the run's shape ({rows} rows x {window} "
+    print(f"[7/18] rescue_shadows at the run's shape ({rows} rows x {window} "
           f"offsets x {READ_LEN} bases, damaged mates, found {found:.3f}): "
           f"{rescue_ms:.4f} ms a call, {work['rescue_calls']} calls in the "
           f"run", flush=True)
@@ -683,7 +716,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     n_pe = max(1, round(work["sw_pairs"] / launches))
     timing = check_and_time(rng, al.device, n_pe, READ_LEN, sw.BWA_SCORES,
                             True)
-    print(f"[7/15] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
+    print(f"[7/18] banded_sw at the paired run's shape (N={n_pe} L={READ_LEN}, "
           f"{work['sw_pairs']} pairs in {launches} launches): kernel "
           f"{timing['ms']:.5f} ms ({timing['gcups']:.1f} GCUPS, bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}), plain "
@@ -823,7 +856,7 @@ def phase_paired_card_vs_cpu(tmp: Path, sp, tls) -> None:
         al.tls = tls
         lib[device] = pair_core(al.align_to_sam(*batches()))
     flips = compare_pairs("paired library", lib["cuda"], lib["cpu"], PE_LIB)
-    print(f"[8/15] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
+    print(f"[8/18] paired card vs CPU: workflow on {PE_SUBSET} pairs, TLS "
           f"{learned} equal, qname/flag/pos/cigar/NM/rnext/pnext/"
           f"tlen equal, MAPQ floor flips {wf_flips}; library on {PE_LIB} "
           f"pairs, equal, MAPQ floor flips {flips}", flush=True)
@@ -924,7 +957,7 @@ def phase_sort_reference(args, card: str, tmp: Path):
         if not np.array_equal(got, want):
             raise AssertionError(f"planted {k}-mers: card != CPU")
         planted.append(f"k={k} {int(got.sum())} of {got.size} in {k_s:.3f} s")
-    print(f"[9/15] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
+    print(f"[9/18] sort-reference: {N_CONTIGS} contigs, {genome.total_length} "
           f"bp, --group-limit {GROUP_LIMIT}: {len(names)} groups in "
           f"{cli_s:.2f} s (CLI process); {'; '.join(rows)}; contig 0 "
           f"({int(km.size)} unique 32-mers): card {int(dev_bits.sum())} "
@@ -1002,7 +1035,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
     groups = "; ".join(f"{g['records']} records, {g['plane_bytes']} B of "
                        f"planes, upload {g['upload_seconds']:.3f} s"
                        for g in ms["groups"])
-    print(f"[10/15] grouped workflow: {WF_READS} reads on {N_CONTIGS} "
+    print(f"[10/18] grouped workflow: {WF_READS} reads on {N_CONTIGS} "
           f"contigs in 2 groups, FASTQ->BAM {WF_READS / wall:.1f} reads/s "
           f"({wall:.2f} s; align_seconds {ms['align_seconds']:.2f} s: "
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
@@ -1013,7 +1046,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
           f"banded_sw launches {launches} "
           f"({ms['device_work']['sw_pairs']} pairs); groups: {groups}; card "
           f"free {free} of {total} B [{card}]", flush=True)
-    print_kernel_at("10/15", "grouped run", rng,
+    print_kernel_at("10/18", "grouped run", rng,
                     ms["device_work"]["sw_pairs"], launches)
 
     run_workflow(tmp / "idx8", tmp / "g_sub.fq", tmp / "g_res", "cuda", BATCH)
@@ -1032,7 +1065,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
         raise AssertionError(f"allocated after each release {released}, "
                              f"baseline {base}")
     uploads = [g["upload_seconds"] for g in st["MatchSelectorStats"]["groups"]]
-    print(f"[10/15] {GM_SUBSET} reads resident and group-major: sorted.bam "
+    print(f"[10/18] {GM_SUBSET} reads resident and group-major: sorted.bam "
           f"equal; allocated {released} B after the releases, baseline "
           f"{base} B; group-major uploads {uploads} s", flush=True)
     return launches
@@ -1064,14 +1097,14 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
     if ms.get("group_major") is not False or launches <= 0:
         raise AssertionError(f"group_major {ms.get('group_major')}, "
                              f"launches {launches}")
-    print(f"[11/15] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
+    print(f"[11/18] grouped paired workflow: {PE_PAIRS} pairs, FASTQ->BAM "
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
           f"{m['summary']}; banded_sw launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
           f"{work['rescue_calls']} calls; {working} [{card}]", flush=True)
-    print_kernel_at("11/15", "grouped paired run", rng, work["sw_pairs"],
+    print_kernel_at("11/18", "grouped paired run", rng, work["sw_pairs"],
                     launches)
 
     runs = {}
@@ -1089,7 +1122,7 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
                              f"{runs['cpu'][0]}")
     flips = compare_pairs("grouped paired workflow", runs["cuda"][1],
                           runs["cpu"][1], PE_SUBSET)
-    print(f"[11/15] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
+    print(f"[11/18] grouped card vs CPU, group-major: {PE_SUBSET} pairs, TLS "
           f"equal, qname/flag/pos/cigar/NM/rnext/pnext/tlen equal, MAPQ floor "
           f"flips {flips}", flush=True)
     return launches
@@ -1150,7 +1183,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
                              "build_index")
     if not np.array_equal(disk.has_neighbors, bits.astype(np.uint8)):
         raise AssertionError("sort-reference -s 64: neighbor bits differ")
-    print(f"[12/15] sort-reference -s 64: {genome.total_length} bp, "
+    print(f"[12/18] sort-reference -s 64: {genome.total_length} bp, "
           f"{disk.num_records} records in {cli_s:.2f} s (CLI process); in "
           f"memory build {build_s:.2f} s, annotation on the card "
           f"{annot_s:.2f} s, flagged {float(bits.mean()):.4f}; planes and "
@@ -1173,7 +1206,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
     placed_aligned = float(placed[mapped].mean())
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
     finder = stats["state"]["stats"].get("match_finder", {})
-    print(f"[12/15] workflow -s 64 against the 64-mer index: {WF_READS} "
+    print(f"[12/18] workflow -s 64 against the 64-mer index: {WF_READS} "
           f"reads, FASTQ->BAM {WF_READS / wall:.1f} reads/s ({wall:.2f} s; "
           f"align_seconds {ms['align_seconds']:.2f} s: {stage_split(ms)}; "
           f"build_seconds {build['build_seconds']:.2f} s); aligned "
@@ -1191,11 +1224,11 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
                              f"< 0.95")
     if launches <= 0:
         raise AssertionError("the 64-mer workflow never launched banded_sw")
-    print_kernel_at("12/15", "64-mer run", rng, ms["device_work"]["sw_pairs"],
+    print_kernel_at("12/18", "64-mer run", rng, ms["device_work"]["sw_pairs"],
                     launches)
     flips, _ = se_card_vs_cpu(tmp, tmp / "idx64", tmp / "subset.fq", "sub64",
                               WF_SUBSET, seed_len=64)
-    print(f"[12/15] card vs CPU, -s 64 against the 64-mer index: workflow on "
+    print(f"[12/18] card vs CPU, -s 64 against the 64-mer index: workflow on "
           f"{WF_SUBSET} reads, qname/flag/pos/cigar/NM equal, MAPQ floor "
           f"flips {flips}", flush=True)
     return launches
@@ -1223,7 +1256,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     m = check_paired_bam(tmp / "pe_opts" / "sorted.bam", genome, sp, stats)
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
     work = ms["device_work"]
-    print(f"[13/15] paired workflow with --neighborhood-size-threshold "
+    print(f"[13/18] paired workflow with --neighborhood-size-threshold "
           f"{NB_THRESHOLD} --scatter-repeats 1: {PE_PAIRS} pairs, FASTQ->BAM "
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
@@ -1235,7 +1268,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     if launches <= 0:
         raise AssertionError("the options' paired workflow never launched "
                              "banded_sw")
-    print_kernel_at("13/15", "options' paired run", rng, work["sw_pairs"],
+    print_kernel_at("13/18", "options' paired run", rng, work["sw_pairs"],
                     launches)
 
     # one library batch with the threshold: the seed stage's neighbor hits
@@ -1256,7 +1289,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     al.release_device()
     if nb.sum() <= 0:
         raise AssertionError("the neighbor pass found no hit")
-    print(f"[13/15] library batch of {BATCH} reads with the threshold: "
+    print(f"[13/18] library batch of {BATCH} reads with the threshold: "
           f"{int(nb.sum())} neighbor hits on {int((nb > 0).sum())} reads, "
           f"aligned {aligned:.4f}, FASTQ->SAM {BATCH / lib_s:.1f} reads/s",
           flush=True)
@@ -1278,7 +1311,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     tls, flips = pe_card_vs_cpu(tmp, "pe_scatter", scatter_repeats=True)
     rows.append(f"paired --scatter-repeats 1: TLS {tls} equal, MAPQ floor "
                 f"flips {flips}")
-    print(f"[13/15] card vs CPU, each option alone on {WF_SUBSET} reads or "
+    print(f"[13/18] card vs CPU, each option alone on {WF_SUBSET} reads or "
           f"pairs, core fields equal: {'; '.join(rows)}; the single-end hash "
           f"pick moved {moved} reads off the default run's placement",
           flush=True)
@@ -1409,14 +1442,14 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
                         f"{disp:.1f} ms")
             del al
     torch.cuda.empty_cache()
-    print(f"[14/15] SPMD library, {SPMD_READS} reads and {SPMD_READS} pairs "
+    print(f"[14/18] SPMD library, {SPMD_READS} reads and {SPMD_READS} pairs "
           f"over meshes of cuda:0 entries (a batch through "
           f"align_batch_arrays, wall, after a warm-up; the dispatch between "
           f"CUDA events): {'; '.join(rows)}; banded_sw launches {launches} "
           f"({pairs_sw} pairs) [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the sharded drivers never launched banded_sw")
-    print_kernel_at("14/15", "SPMD library", np.random.default_rng(
+    print_kernel_at("14/18", "SPMD library", np.random.default_rng(
         args.seed + 14), pairs_sw, launches)
 
     # collective duplicate marking on phase 7's records, in Build order
@@ -1444,7 +1477,7 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
                              f"mark_duplicates_batch")
     if int(overflow.sum()):
         raise AssertionError(f"collective dedup overflow {overflow}")
-    print(f"[14/15] collective dedup over {DEDUP_DEVICES} cuda:0 entries: "
+    print(f"[14/18] collective dedup over {DEDUP_DEVICES} cuda:0 entries: "
           f"{len(fb)} records of phase 7, flags equal to "
           f"mark_duplicates_batch ({dups} duplicates), overflow 0; "
           f"collective {coll_s:.3f} s, per-bin (host numpy) {batch_s:.3f} s",
@@ -1487,7 +1520,7 @@ def phase_multihost(args, tmp: Path, card: str) -> int:
         f"), banded_sw launches {p['launches']} ({p['sw_pairs']} pairs)"
         for p in procs)
     ms = result["counts"]["match_selector"]
-    print(f"[15/15] multi-process workflow: {PE_PAIRS} pairs, 2 processes on "
+    print(f"[15/18] multi-process workflow: {PE_PAIRS} pairs, 2 processes on "
           f"the card with gloo control against one uniform_bins process: "
           f"sorted.bam ({result['bam_bytes']} B), .bai and .md5 "
           f"byte-equal, counts equal (total_reads {ms['total_reads']}, "
@@ -1495,8 +1528,365 @@ def phase_multihost(args, tmp: Path, card: str) -> int:
           f"single process {result['single_s']:.2f} s, two processes "
           f"{result['multi_s']:.2f} s (their start included); {split} "
           f"[{card}]", flush=True)
-    print_kernel_at("15/15", "multi-process workflow",
+    print_kernel_at("15/18", "multi-process workflow",
                     np.random.default_rng(args.seed + 15), pairs_sw, launches)
+    return launches
+
+
+def expected_samples(observed: np.ndarray, barcodes: list) -> np.ndarray:
+    """The sample each index read belongs to, reckoned here independently
+    of the port's resolver: the one barcode within one substitution (an N
+    counts as one), else -1 (unknown)."""
+    codes = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), np.stack(
+        [np.frombuffer(b.encode(), np.uint8) for b in barcodes]))
+    near = (observed[:, None, :] != codes[None]).sum(axis=2) <= 1
+    return np.where(near.sum(axis=1) == 1, near.argmax(axis=1), -1)
+
+
+def write_sheet(path: Path, rows: list) -> None:
+    cols = ["barcode", "sample"] + (["reference"] if len(rows[0]) > 2 else [])
+    path.write_text(",".join(cols) + "\n"
+                    + "".join(",".join(map(str, r)) + "\n" for r in rows))
+
+
+def pair_placement(recs, cluster_of: dict, offsets: dict, start1, start2,
+                   n: int) -> tuple:
+    """(mapped [2, n], within 8 bp of the truth [2, n], proper [n]) of
+    `read_bam_core` records whose names `cluster_of` maps to a cluster."""
+    mapped = np.zeros((2, n), bool)
+    placed = np.zeros((2, n), bool)
+    proper = np.zeros(n, bool)
+    truth = (start1, start2)
+    for r in recs:
+        i = cluster_of[r.qname]
+        e = 0 if r.flag & 0x40 else 1
+        if r.is_mapped:
+            mapped[e, i] = True
+            placed[e, i] = abs(offsets[r.rname] + r.pos - 1 - truth[e][i]) <= 8
+        proper[i] |= bool(r.flag & 0x2)
+    return mapped, placed, proper
+
+
+def check_sorted(path: Path, recs, refs) -> None:
+    """Coordinate order (unplaced records last), .bai and .md5."""
+    ref_index = {name: i for i, (name, _len) in enumerate(refs)}
+    placed_at = np.array([r.rname != "*" for r in recs], bool)
+    keys = [(ref_index[r.rname], r.pos) for r in recs if r.rname != "*"]
+    first = int(np.argmin(placed_at)) if not placed_at.all() else len(recs)
+    if not all(a <= b for a, b in zip(keys, keys[1:])) \
+            or placed_at[first:].any():
+        raise AssertionError(f"{path} is not in coordinate order")
+    for ext in (".bai", ".md5"):
+        if not Path(str(path) + ext).is_file():
+            raise AssertionError(f"no {path}{ext}")
+
+
+def demux_core(out: Path, samples) -> dict:
+    """pair_core of every sample's sorted.bam, with RG and BC."""
+    core = {}
+    for s in samples:
+        for r in read_bam(out / s / "sorted.bam")[2]:
+            (key, (fields, mapq)), = pair_core([r]).items()
+            core[key] = (fields + (r.tags.get("RG"), r.tags.get("BC")), mapq)
+    return core
+
+
+def phase_bcl(args, genome, sp, card: str, tmp: Path) -> int:
+    """Phase 7's pairs as a demultiplexed BCL run folder through the
+    workflow on the card; then a one-tile run folder on the card and on
+    the CPU.  Returns the kernel's launches in the full run."""
+    rng = np.random.default_rng(args.seed + 16)
+    t0 = time.perf_counter()
+    barcodes = synthetic.make_barcodes(rng, 4)
+    observed, _planted, mism = synthetic.barcode_reads(rng, PE_PAIRS,
+                                                       barcodes, 0.01, 0.02)
+    pf = rng.random(PE_PAIRS) >= 0.05
+    planted = synthetic.write_pair_run_folder(
+        tmp / "run16", sp.bases1, sp.bases2, observed,
+        [(1, "per_cycle", list(BCL_TILES)), (2, "bgzf", list(BCL_TILES))],
+        pf=pf, clocs=True)
+    samples = [f"S{k + 1}" for k in range(len(barcodes))]
+    write_sheet(tmp / "sheet16.csv", list(zip(barcodes, samples)))
+    setup_s = time.perf_counter() - t0
+    names = [f"SIM:1:FCSIM:{lane}:{tile}:{x}:{y}" for lane, tile, x, y in zip(
+        planted["lane"], planted["tile"], planted["x"], planted["y"])]
+    cluster_of = {nm: i for i, nm in enumerate(names)}
+    want = expected_samples(observed, barcodes)
+    opts = dict(run_folder=str(tmp / "run16"),
+                sample_sheet=str(tmp / "sheet16.csv"), per_tile_tls=True,
+                bam_exclude_tags="none")
+
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx", None, tmp / "bcl_wf", "cuda", BATCH,
+                         **opts)
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+
+    t0 = time.perf_counter()
+    out = tmp / "bcl_wf"
+    offsets = {c.name: c.offset for c in genome.contigs}
+    counts = {}
+    mapped = np.zeros((2, PE_PAIRS), bool)
+    placed = np.zeros((2, PE_PAIRS), bool)
+    proper = np.zeros(PE_PAIRS, bool)
+    for k, s in enumerate(samples + ["unknown"]):
+        refs, recs = read_bam_core(out / s / "sorted.bam")
+        check_sorted(out / s / "sorted.bam", recs, refs)
+        m, p, pr = pair_placement(recs, cluster_of, offsets, sp.start1,
+                                  sp.start2, PE_PAIRS)
+        mapped |= m
+        placed |= p
+        proper |= pr
+        expect = int((pf & (want == (k if s != "unknown" else -1))).sum())
+        counts[s] = len(recs) // 2
+        if len(recs) != 2 * expect:
+            raise AssertionError(f"{s}: {len(recs)} records, want "
+                                 f"{2 * expect}")
+    for e in (0, 1):
+        if mapped[e, pf].mean() < 0.95 or placed[e, pf].mean() < 0.95:
+            raise AssertionError(f"run folder read {e + 1}: aligned "
+                                 f"{mapped[e, pf].mean()}, placed "
+                                 f"{placed[e, pf].mean()} < 0.95")
+    normal = pf & ~sp.damaged & ~sp.far
+    proper_frac = float(proper[normal].mean())
+    if proper_frac < 0.90:
+        raise AssertionError(f"run folder: proper {proper_frac} < 0.90")
+    by_tile = stats["state"]["tls_by_tile"]
+    medians = {k: v["median"] for k, v in by_tile.items()}
+    if len(medians) != 2 * len(BCL_TILES) or any(
+            abs(v - 300) > 15 for v in medians.values()):
+        raise AssertionError(f"per-tile TLS medians {medians}")
+    # tags of the first sample's first records
+    recs = read_bam(out / samples[0] / "sorted.bam")[2][:BCL_SUBSET]
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    for r in recs:
+        i = cluster_of[r.qname]
+        bc = letters[observed[i]].tobytes().decode()
+        if (r.tags.get("ZX"), r.tags.get("ZY"), r.tags.get("BC"),
+                r.tags.get("RG")) != (("i", int(planted["x"][i])),
+                                      ("i", int(planted["y"][i])),
+                                      ("Z", bc), ("Z", samples[0])):
+            raise AssertionError(f"{r.qname}: tags {r.tags}")
+    demux = json.loads((out / "Stats" / "DemultiplexingStats.json")
+                       .read_text())
+    if demux != {s: c for s, c in counts.items() if c}:
+        raise AssertionError(f"DemultiplexingStats {demux} != {counts}")
+    check_s = time.perf_counter() - t0
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    n_rec = 2 * int(pf.sum())
+    print(f"[16/18] run folder: {PE_PAIRS} clusters in {2 * len(BCL_TILES)} "
+          f"tiles (lane 1 .bcl.gz, lane 2 BGZF + .bci, .clocs), "
+          f"{int(pf.sum())} passing the filter, {n_rec} records, BCL->BAM "
+          f"{n_rec / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
+          f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
+          f"{build['build_seconds']:.2f} s); samples {counts} (equal to an "
+          f"independent barcode match; {int(mism.sum())} one-mismatch "
+          f"barcodes); aligned {mapped[0, pf].mean():.4f}/"
+          f"{mapped[1, pf].mean():.4f}, within 8 bp "
+          f"{placed[0, pf].mean():.4f}/{placed[1, pf].mean():.4f}, proper "
+          f"{proper_frac:.4f} of {int(normal.sum())} undamaged near pairs; "
+          f"per-tile TLS medians {sorted(medians.values())}; ZX/ZY/BC/RG of "
+          f"{len(recs)} records equal the planted ones; banded_sw launches "
+          f"{launches} ({ms['device_work']['sw_pairs']} pairs); checks "
+          f"{check_s:.1f} s, setup {setup_s:.1f} s [{card}]", flush=True)
+    if launches <= 0:
+        raise AssertionError("the run-folder workflow never launched banded_sw")
+    print_kernel_at("16/18", "run-folder run", rng,
+                    ms["device_work"]["sw_pairs"], launches)
+
+    n = BCL_SUBSET
+    synthetic.write_pair_run_folder(
+        tmp / "run16s", sp.bases1[:n], sp.bases2[:n], observed[:n],
+        [(1, "per_cycle", [1101])], pf=pf[:n], clocs=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        o = tmp / f"bcl_sub_{device}"
+        st = run_workflow(tmp / "idx", None, o, device, n,
+                          **{**opts, "run_folder": str(tmp / "run16s")})
+        runs[device] = ((st["state"]["tls"], st["state"]["tls_by_tile"]),
+                        demux_core(o, samples + ["unknown"]))
+    if runs["cuda"][0] != runs["cpu"][0]:
+        raise AssertionError(f"run folder TLS card {runs['cuda'][0]} vs CPU "
+                             f"{runs['cpu'][0]}")
+    flips = compare_pairs("run-folder workflow", runs["cuda"][1],
+                          runs["cpu"][1], int(pf[:n].sum()))
+    print(f"[16/18] run folder card vs CPU: one tile of {n} clusters, TLS "
+          f"and per-tile TLS equal, qname/flag/pos/cigar/NM/rnext/pnext/"
+          f"tlen/RG/BC equal, MAPQ floor flips {flips}", flush=True)
+    return launches
+
+
+def phase_bam_input(args, genome, sp, card: str, tmp: Path) -> int:
+    """Phase 7's sorted.bam realigned through the workflow on the card;
+    the pairedness probe alone in a fresh process; phase 8's 4,096-pair
+    BAM on the card and on the CPU.  Returns the kernel's launches."""
+    src = tmp / "pe_wf" / "sorted.bam"
+    root = Path(__file__).resolve().parent
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import json, resource, sys, time\n"
+         "from isaac_aligner_tpu_torch.io.bam_input import reads_from_bam\n"
+         "t0 = time.perf_counter()\n"
+         "b1, b2 = reads_from_bam(sys.argv[1])\n"
+         "print(json.dumps({'seconds': time.perf_counter() - t0, "
+         "'peak_rss_kb': resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,"
+         " 'paired': b2 is not None, 'templates': b1.count}))\n",
+         str(src)], cwd=root, capture_output=True, text=True, timeout=600)
+    if probe.returncode:
+        raise AssertionError(f"pairedness probe: {probe.stderr[-2000:]}")
+    pr = json.loads(probe.stdout.splitlines()[-1])
+    if not pr["paired"] or pr["templates"] != PE_PAIRS:
+        raise AssertionError(f"pairedness probe {pr}")
+
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    stats = run_workflow(tmp / "idx", None, tmp / "bam_wf", "cuda", BATCH,
+                         bam_input=str(src))
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    t0 = time.perf_counter()
+    m = check_paired_bam(tmp / "bam_wf" / "sorted.bam", genome, sp, stats)
+    ends_in = {(r.qname, r.flag & 0xC0) for r in read_bam_core(src)[1]}
+    ends_out = {(r.qname, r.flag & 0xC0)
+                for r in read_bam_core(tmp / "bam_wf" / "sorted.bam")[1]}
+    if ends_in != ends_out:
+        raise AssertionError("read 1 / read 2 identities changed")
+    check_s = time.perf_counter() - t0
+    ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
+    print(f"[17/18] BAM input: phase 7's sorted.bam, {2 * PE_PAIRS} records, "
+          f"BAM->BAM {2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; "
+          f"align_seconds {ms['align_seconds']:.2f} s: {stage_split(ms)}; "
+          f"build_seconds {build['build_seconds']:.2f} s); pairedness probe "
+          f"(whole BAM read, fresh process) {pr['seconds']:.2f} s, peak RSS "
+          f"{pr['peak_rss_kb'] / 1024:.1f} MiB; learned {m['tls']}; "
+          f"{m['summary']}; read 1/read 2 identities kept; banded_sw "
+          f"launches {launches} ({ms['device_work']['sw_pairs']} pairs); "
+          f"checks {check_s:.1f} s [{card}]", flush=True)
+    if launches <= 0:
+        raise AssertionError("the BAM-input workflow never launched banded_sw")
+    print_kernel_at("17/18", "BAM-input run", np.random.default_rng(
+        args.seed + 17), ms["device_work"]["sw_pairs"], launches)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        o = tmp / f"bam_sub_{device}"
+        st = run_workflow(tmp / "idx", None, o, device, PE_SUBSET,
+                          bam_input=str(tmp / "pe_sub_cuda" / "sorted.bam"))
+        runs[device] = (st["state"]["tls"],
+                        pair_core(read_bam(o / "sorted.bam")[2]))
+    if runs["cuda"][0] != runs["cpu"][0]:
+        raise AssertionError(f"BAM input TLS card {runs['cuda'][0]} vs CPU "
+                             f"{runs['cpu'][0]}")
+    flips = compare_pairs("BAM-input workflow", runs["cuda"][1],
+                          runs["cpu"][1], PE_SUBSET)
+    print(f"[17/18] BAM input card vs CPU: phase 8's {PE_SUBSET}-pair BAM, "
+          f"TLS equal, qname/flag/pos/cigar/NM/rnext/pnext/tlen equal, MAPQ "
+          f"floor flips {flips}", flush=True)
+    return launches
+
+
+def phase_per_barcode(args, genome, genome8, card: str, tmp: Path) -> int:
+    """FASTQ pairs plus a barcode FASTQ under a sample sheet with
+    per-barcode references through the per-barcode driver on the card.
+    Returns the kernel's launches."""
+    rng = np.random.default_rng(args.seed + 18)
+    t0 = time.perf_counter()
+    share = (3 * PB_PAIRS // 8, 3 * PB_PAIRS // 8, PB_PAIRS // 8,
+             PB_PAIRS // 8)
+    parts = (synthetic.make_pairs(rng, genome.codes, share[0]),
+             synthetic.make_pairs(rng, genome8.codes, share[1],
+                                  insert=(500.0, 50.0),
+                                  insert_range=(300, 700)),
+             synthetic.make_pairs(rng, genome.codes, share[2]),
+             synthetic.make_pairs(rng, genome.codes, share[3]))
+    barcodes = synthetic.make_barcodes(rng, 3)
+    order = rng.permutation(PB_PAIRS)
+    cat = {f: np.concatenate([getattr(p, f) for p in parts])[order]
+           for f in ("bases1", "bases2", "start1", "start2")}
+    label = np.repeat(np.arange(4), share)[order]
+    codes = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), np.stack(
+        [np.frombuffer(b.encode(), np.uint8) for b in barcodes]))
+    observed = np.where((label < 3)[:, None], codes[np.minimum(label, 2)],
+                        rng.integers(0, 4, (PB_PAIRS, 8))).astype(np.uint8)
+    for e in (1, 2):
+        write_fastq(tmp / f"pb{e}.fq", cat[f"bases{e}"], "p")
+    write_fastq(tmp / "pb_i1.fq", observed, "p")
+    write_sheet(tmp / "sheet18.csv", [
+        (barcodes[0], "A", tmp / "idx"), (barcodes[1], "B", tmp / "idx8"),
+        (barcodes[2], "C", "unmapped")])
+    want = expected_samples(observed, barcodes)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sw.banded_sw.launches = 0
+    t0 = time.perf_counter()
+    wf = AlignWorkflow(WorkflowOptions(
+        reference=str(tmp / "idx"), output_dir=str(tmp / "pb"),
+        fastq1=str(tmp / "pb1.fq"), fastq2=str(tmp / "pb2.fq"),
+        barcode_fastq=str(tmp / "pb_i1.fq"),
+        sample_sheet=str(tmp / "sheet18.csv"), batch_size=BATCH,
+        device="cuda"))
+    wf.run()
+    wall = time.perf_counter() - t0
+    launches = sw.banded_sw.launches
+    driver = getattr(wf, "per_barcode", None)
+    if not isinstance(driver, PerBarcodeDriver) or \
+            set(driver.device_bytes) != {"A", "B", "unknown"} or \
+            any(b != base for b in driver.device_bytes.values()):
+        raise AssertionError(f"allocated after the sub-workflows "
+                             f"{getattr(driver, 'device_bytes', None)}, "
+                             f"baseline {base}")
+    out = tmp / "pb"
+    per = json.loads((out / "Stats" / "PerBarcodeStats.json").read_text())
+    cluster_of = {f"p{i}": i for i in range(PB_PAIRS)}
+    rows = []
+    sw_pairs = 0
+    for k, s in enumerate(["A", "B", "C", "unknown"]):
+        refs, recs = read_bam_core(out / s / "sorted.bam")
+        sel = want == (k if k < 3 else -1)
+        if len(recs) != 2 * int(sel.sum()) or per[s]["reads"] != len(recs):
+            raise AssertionError(f"{s}: {len(recs)} records, stats "
+                                 f"{per[s]['reads']}, want "
+                                 f"{2 * int(sel.sum())}")
+        if s == "C":
+            if any(r.is_mapped for r in recs):
+                raise AssertionError("an unmapped-reference read is mapped")
+            rows.append(f"C {len(recs)} records, all unmapped")
+            continue
+        check_sorted(out / s / "sorted.bam", recs, refs)
+        g = genome8 if s == "B" else genome
+        offsets = {c.name: c.offset for c in g.contigs}
+        _m, p, _proper = pair_placement(recs, cluster_of, offsets,
+                                        cat["start1"], cat["start2"],
+                                        PB_PAIRS)
+        med = per[s]["tls"]["median"]
+        if s != "unknown" and (p[0, sel].mean() < 0.95
+                               or p[1, sel].mean() < 0.95):
+            raise AssertionError(f"{s}: placed {p[0, sel].mean()}/"
+                                 f"{p[1, sel].mean()} < 0.95")
+        if abs(med - (500 if s == "B" else 300)) > (25 if s == "B" else 15):
+            raise AssertionError(f"{s}: TLS median {med}")
+        ms = json.loads((out / s / "Stats" / "MatchSelectorStats.json")
+                        .read_text())
+        sw_pairs += ms["device_work"]["sw_pairs"]
+        rows.append(f"{s} {len(recs)} records, within 8 bp "
+                    f"{p[0, sel].mean():.4f}/{p[1, sel].mean():.4f}, TLS "
+                    f"median {med}")
+    n_rec = 2 * PB_PAIRS
+    print(f"[18/18] per-barcode driver: {PB_PAIRS} pairs + barcode FASTQ, "
+          f"samples A (phase 5's index), B (phase 9's two groups), C "
+          f"unmapped, unknown (the run's -r): {'; '.join(rows)} (counts "
+          f"equal to an independent barcode match); FASTQ->BAM "
+          f"{n_rec / wall:.1f} reads/s ({wall:.2f} s, every sample's passes "
+          f"included); allocated after each sub-workflow "
+          f"{driver.device_bytes} B, baseline {base} B; banded_sw launches "
+          f"{launches} ({sw_pairs} pairs); setup {setup_s:.1f} s [{card}]",
+          flush=True)
+    if launches <= 0:
+        raise AssertionError("the per-barcode run never launched banded_sw")
+    print_kernel_at("18/18", "per-barcode run", rng, sw_pairs, launches)
     return launches
 
 
@@ -1511,14 +1901,14 @@ def main() -> None:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/15] card: {card}; torch {torch.__version__} CUDA "
+    print(f"[1/18] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
     _build.load_kernel("banded_sw")
     report, build_s = _build.build_info("banded_sw")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
             or "spill" in ln]
-    print(f"[2/15] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
+    print(f"[2/18] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
           flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
@@ -1556,6 +1946,12 @@ def main() -> None:
         done("14")
         mh_launches = phase_multihost(args, Path(d), card)
         done("15")
+        bcl_launches = phase_bcl(args, genome, sp, card, Path(d))
+        done("16")
+        bam_launches = phase_bam_input(args, genome, sp, card, Path(d))
+        done("17")
+        pb_launches = phase_per_barcode(args, genome, genome8, card, Path(d))
+        done("18")
     counts = (("single-end workflow", se_launches),
               ("paired workflow", pe_launches),
               ("grouped single-end workflow", gse_launches),
@@ -1563,7 +1959,10 @@ def main() -> None:
               ("64-mer workflow", i64_launches),
               ("paired workflow with the seed options", opt_launches),
               ("SPMD library", spmd_launches),
-              ("multi-process workflow", mh_launches))
+              ("multi-process workflow", mh_launches),
+              ("run-folder workflow", bcl_launches),
+              ("BAM-input workflow", bam_launches),
+              ("per-barcode workflow", pb_launches))
     launches = sum(c for _, c in counts)
     per_phase = ", ".join(f"{p} {e - s:.1f} s" for (_, s), (p, e)
                           in zip([("", 0.0)] + ends, ends))

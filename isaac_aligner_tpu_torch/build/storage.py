@@ -9,10 +9,7 @@ FragmentCollector.hh.  Here each aligned batch converts to a
 appends to per-bin chunk files, so the whole-run record set never lives
 in RAM at once.
 
-The port's own copy of the single-end and paired-end parts of
-`isaac_aligner_tpu/build/storage.py`, unchanged.  Not ported yet:
-`from_sam_records` (BAM input, ROADMAP queue A item 9); the workflow
-refuses that input.
+The port's own copy of `isaac_aligner_tpu/build/storage.py`, unchanged.
 """
 
 from __future__ import annotations
@@ -319,6 +316,65 @@ def from_paired_result(genome, b1, b2, res: dict, mapq_cap: int = 60,
     _apply_aux(out, aux.take(idx) if aux is not None else None)
     finalize_dup_columns(out, genome.contig_offsets)
     return out
+
+
+def from_sam_records(recs: list[sam.SamRecord], contigs,
+                     rg_names: tuple[str, ...] = ()) -> FragmentBatch:
+    """SamRecord list -> FragmentBatch (compatibility path: multi-index
+    merging still produces record objects; everything downstream is
+    columnar)."""
+    from .. import dna
+    n = len(recs)
+    cid = {c.name: c.index for c in contigs}
+    read_len = max((len(r.seq) for r in recs if r.seq != "*"), default=1)
+    cigars = [r.cigar if r.cigar != "*" else None for r in recs]
+    lengths = np.array([len(r.seq) if r.seq != "*" else 0 for r in recs],
+                       np.int32)
+    ops, n_ops = R.cigars_to_ops(cigars, lengths)
+    fb = FragmentBatch.empty(n, read_len, max_cigar=ops.shape[1],
+                             rg_names=rg_names)
+    names = np.array([r.qname for r in recs], dtype="S")
+    fb.name_bytes = names.view(np.uint8).reshape(n, max(1, names.dtype.itemsize))
+    fb.name_len = np.char.str_len(names).astype(np.int32)
+    fb.cigar_ops, fb.length = ops, lengths
+    rg_lut = {nm_: i for i, nm_ in enumerate(rg_names)}
+    mcs = []
+    for i, r in enumerate(recs):
+        fb.flag[i] = r.flag
+        fb.ref_id[i] = cid.get(r.rname, -1)
+        fb.pos[i] = r.pos - 1 if r.rname != "*" else -1
+        fb.mapq[i] = r.mapq
+        fb.n_cigar[i] = n_ops[i] if (fb.ref_id[i] >= 0 and r.cigar != "*"
+                                     and not (r.flag & sam.FLAG_UNMAPPED)) else 0
+        if r.seq != "*":
+            fb.seq[i, : lengths[i]] = dna.encode(r.seq)
+            fb.qual[i, : lengths[i]] = \
+                np.frombuffer(r.qual.encode("ascii"), np.uint8) - 33
+        if r.rnext == "=":
+            fb.mate_ref_id[i] = fb.ref_id[i]
+        else:
+            fb.mate_ref_id[i] = cid.get(r.rnext, -1)
+        fb.mate_pos[i] = r.pnext - 1 if r.pnext else -1
+        fb.tlen[i] = r.tlen
+        for tag, col in (("NM", fb.nm), ("SM", fb.sm), ("AS", fb.as_),
+                         ("MQ", fb.mq), ("ZX", fb.zx), ("ZY", fb.zy)):
+            if tag in r.tags:
+                col[i] = int(r.tags[tag][1])
+        if "RG" in r.tags:
+            fb.rg[i] = rg_lut.get(str(r.tags["RG"][1]), -1)
+        mcs.append(str(r.tags["MC"][1]) if "MC" in r.tags else None)
+        if "OC" in r.tags:
+            if fb.oc is None:
+                fb.oc = np.full(n, None, dtype=object)
+            fb.oc[i] = str(r.tags["OC"][1])
+    mc_ops, n_mc = R.cigars_to_ops(mcs, np.zeros(n, np.int32))
+    fb.mc_ops = np.zeros((n, max(fb.cigar_ops.shape[1], mc_ops.shape[1])),
+                         np.uint32)
+    fb.mc_ops[:, : mc_ops.shape[1]] = mc_ops
+    fb.n_mc = np.where([m is not None for m in mcs], n_mc, 0).astype(np.int16)
+    offs = np.array([c.offset for c in contigs], np.int64)
+    finalize_dup_columns(fb, offs)
+    return fb
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,17 @@
 Port of `isaac_aligner_tpu/cli.py` (reference bin/isaac-align,
 src/c++/bin/isaac-align.cpp:31-151, and the bash script
 src/bash/bin/isaac-sort-reference): `sort-reference` with the JAX
-package's options, `align` with the options the FASTQ paths run
-(single-end, and paired-end with -2), both plus `--device` (default
-"cuda"), and the index tools `extract-neighbors`, `merge-references`,
-`reorder-reference`, `pack-reference` and `unpack-reference`:
+package's options, `align` with every option of the JAX package's
+(FASTQ, BCL run-folder and BAM inputs, sample sheets), both plus
+`--device` (default "cuda"), and the index tools `extract-neighbors`,
+`merge-references`, `reorder-reference`, `pack-reference` and
+`unpack-reference`:
 
     python -m isaac_aligner_tpu_torch sort-reference -g ref.fa -o index_dir \\
         [--device cuda|cpu] [--streaming] [--dont-annotate] ...
     python -m isaac_aligner_tpu_torch align -r index_dir|ref.fa \\
-        -1 r1.fastq [-2 r2.fastq] -o out_dir [--device cuda|cpu] \\
+        -1 r1.fastq [-2 r2.fastq] | --run-folder RUN | -b in.bam \\
+        [--sample-sheet sheet.csv] -o out_dir [--device cuda|cpu] \\
         [--start-from State] ...
 
 `sort-reference` writes the same files as the JAX package's; a genome over
@@ -85,27 +87,38 @@ def _cmd_align(args) -> int:
         output_dir=args.output_directory,
         fastq1=args.fastq1,
         fastq2=args.fastq2,
+        bam_input=args.bam,
+        run_folder=args.run_folder,
         lanes=tuple(int(x) for x in args.lane.split(",")) if args.lane else None,
+        tiles=tuple(int(x) for x in args.tile.split(",")) if args.tile else None,
+        pf_only=not args.keep_non_pf,
+        use_bases_mask=args.use_bases_mask,
         seed_len=args.seed_length,
         batch_size=args.batch_size,
         neighborhood_size_threshold=args.neighborhood_size_threshold,
         keep_duplicates=not args.remove_duplicates,
         mark_duplicates=not args.no_mark_duplicates,
+        gapped=not args.no_gapped,
         sample=args.sample,
         base_quality_cutoff=args.base_quality_cutoff,
         clip_semialigned=not args.no_clip_semialigned,
         clip_overlapping=not args.no_clip_overlapping,
         adapters=tuple(args.adapter or ()),
+        sample_sheet=args.sample_sheet,
+        barcode_fastq=args.barcode_fastq,
+        barcode_mismatches=args.barcode_mismatches,
         realign_gaps=args.realign_gaps,
         gap_scoring=args.gap_scoring,
+        tls_override=args.tls,
         seeds=args.seeds,
         repeat_threshold=args.repeat_threshold,
         first_pass_seeds=args.first_pass_seeds,
         dodgy_alignment_score=args.dodgy_alignment_score,
-        tls_override=args.tls,
+        bam_exclude_tags=args.bam_exclude_tags,
+        ignore_missing_bcls=args.ignore_missing_bcls,
+        ignore_missing_filters=args.ignore_missing_filters,
         mate_drift_range=args.mate_drift_range,
         pessimistic_mapq=args.bam_pessimistic_mapq,
-        bam_exclude_tags=args.bam_exclude_tags,
         records_per_bin=args.records_per_bin,
         memory_limit=args.memory_limit,
         devices=args.devices,
@@ -119,12 +132,14 @@ def _cmd_align(args) -> int:
         semialigned_gap_limit=args.semialigned_gap_limit,
         shadow_scan_range=args.shadow_scan_range,
         realigned_gaps_per_fragment=args.realigned_gaps_per_fragment,
+        single_library_samples=bool(args.single_library_samples),
         qscore_bin=bool(args.qscore_bin),
         variable_read_length=args.variable_fastq_read_length,
         bin_regex=args.bin_regex,
         bam_header_tags=tuple(
             t.replace("\\t", "\t") for t in (args.bam_header_tag or ())),
         compression_level=args.bam_gzip_level,
+        per_tile_tls=bool(args.per_tile_tls),
         input_parallel_load=args.input_parallel_load,
         output_parallel_save=args.output_parallel_save,
         ignore_neighbors=bool(args.ignore_neighbors),
@@ -146,6 +161,7 @@ def _cmd_align(args) -> int:
         pre_sort_bins=bool(args.pre_sort_bins),
         base_calls_format=args.base_calls_format,
         clusters_at_a_time=args.clusters_at_a_time,
+        tiles_regex=args.tiles,
         device=args.device,
         **({"qscore_bin_values": args.qscore_bin_values}
            if args.qscore_bin_values else {}),
@@ -156,6 +172,33 @@ def _cmd_align(args) -> int:
     print(f"workflow finished at state {wf.state}; output in "
           f"{args.output_directory}")
     return 0
+
+
+class _HelpDefaults(argparse.Action):
+    """reference --help-defaults (manual.md:394): tab-delimited
+    option\tdefault listing."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        for a in parser._actions:
+            if a.option_strings and not isinstance(
+                    a, (argparse._HelpAction, _HelpDefaults, _HelpMd)):
+                print(f"{a.option_strings[-1]}\t{a.default}")
+        parser.exit()
+
+
+class _HelpMd(argparse.Action):
+    """reference --help-md (manual.md:396): markdown help section."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        print(f"## {parser.prog} options\n")
+        for a in parser._actions:
+            if not a.option_strings:
+                continue
+            names = ", ".join(f"`{o}`" for o in a.option_strings)
+            default = "" if a.default in (None, argparse.SUPPRESS) \
+                else f" (default: `{a.default}`)"
+            print(f"- {names}{default} — {a.help or ''}")
+        parser.exit()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -203,11 +246,21 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("-1", "--fastq1", default=None,
                     help="read-1 FASTQ, or a directory of "
                          "lane<N>_read<1|2>.fastq[.gz] files")
+    al.add_argument("-b", "--bam", default=None,
+                    help="realign reads from an existing BAM instead of FASTQ")
     al.add_argument("-2", "--fastq2", default=None,
                     help="read-2 FASTQ of a paired-end run")
+    al.add_argument("--run-folder", default=None,
+                    help="Illumina BCL run folder (RunInfo.xml + BaseCalls)")
     al.add_argument("--lane", default=None,
-                    help="comma-separated lane subset of a --fastq1 "
-                         "directory")
+                    help="comma-separated lane subset of --run-folder or "
+                         "of a --fastq1 directory")
+    al.add_argument("--tile", default=None,
+                    help="comma-separated tile subset for --run-folder")
+    al.add_argument("--keep-non-pf", action="store_true",
+                    help="keep clusters failing the chastity filter")
+    al.add_argument("--use-bases-mask", default=None,
+                    help="per-cycle y/n/i mask, e.g. y101,i8,y101 or y*,n*")
     al.add_argument("-o", "--output-directory", required=True)
     al.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card), cuda:N "
@@ -220,12 +273,18 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("--sample", default="sample")
     al.add_argument("--remove-duplicates", action="store_true")
     al.add_argument("--no-mark-duplicates", action="store_true")
+    al.add_argument("--no-gapped", action="store_true")
     al.add_argument("--base-quality-cutoff", type=int, default=25,
                     help="3' quality trim cutoff (0 disables)")
     al.add_argument("--no-clip-semialigned", action="store_true")
     al.add_argument("--no-clip-overlapping", action="store_true")
     al.add_argument("--adapter", action="append", default=None,
                     help="adapter sequence to clip (repeatable)")
+    al.add_argument("--sample-sheet", default=None,
+                    help="CSV with barcode,sample[,project,lane] columns")
+    al.add_argument("--barcode-fastq", default=None,
+                    help="index (I1) FASTQ aligned with fastq1 order")
+    al.add_argument("--barcode-mismatches", type=int, default=1)
     al.add_argument("--seeds", default="auto",
                     help="auto | colon-separated seed offsets, e.g. 0:32:64")
     al.add_argument("--repeat-threshold", type=int, default=10,
@@ -239,6 +298,10 @@ def main(argv: list[str] | None = None) -> int:
     al.add_argument("--tls", default=None,
                     help="force template-length stats: "
                          "min:median:max:lowStdDev:highStdDev:M0:M1")
+    al.add_argument("--ignore-missing-bcls", action="store_true",
+                    help="missing BCL cycle files read as all-N bases")
+    al.add_argument("--ignore-missing-filters", action="store_true",
+                    help="missing filter files read as all clusters PF")
     al.add_argument("--mate-drift-range", type=int, default=-1,
                     help="rescue window = TLS median +- this (default -1: "
                          "use the min..max template range)")
@@ -296,6 +359,10 @@ def main(argv: list[str] | None = None) -> int:
                          "median +- range (manual.md:524-527)")
     al.add_argument("--realigned-gaps-per-fragment", type=int, default=4,
                     help="max known gaps combined per realignment choice")
+    al.add_argument("--single-library-samples", type=int, default=1,
+                    choices=(0, 1),
+                    help="1: dedup across the sample; 0: each lane is "
+                         "its own library (manual.md:528-531)")
     al.add_argument("--qscore-bin", type=int, default=0, choices=(0, 1),
                     help="bin input qualities before processing "
                          "(manual.md:459-460)")
@@ -313,6 +380,9 @@ def main(argv: list[str] | None = None) -> int:
                          "tab (repeatable; manual.md:277-278)")
     al.add_argument("--bam-gzip-level", type=int, default=1,
                     help="BGZF compression level of the output BAM")
+    al.add_argument("--per-tile-tls", type=int, default=0, choices=(0, 1),
+                    help="recompute template-length statistics per tile "
+                         "(BCL inputs; one extra stream pass)")
     al.add_argument("--input-parallel-load", type=int, default=2,
                     help="input parse prefetch depth (reference IO "
                          "thread knob)")
@@ -358,7 +428,7 @@ def main(argv: list[str] | None = None) -> int:
                          "BAM instead of failing (manual.md:271)")
     al.add_argument("--lane-number-max", type=int, default=8,
                     help="highest lane scanned when --fastq1 names a "
-                         "base-calls directory of lane<N>_read1."
+                         "base-calls directory of lane<N>_read<R>."
                          "fastq[.gz] files (manual.md:419)")
     al.add_argument("--bam-pu-format", default="%F:%L:%B",
                     help="RG PU field template: %%F flowcell, %%L lane "
@@ -385,12 +455,21 @@ def main(argv: list[str] | None = None) -> int:
                     help="1: position-sort each bin chunk at write time "
                          "(manual.md:457)")
     al.add_argument("--base-calls-format", default=None,
-                    choices=("fastq", "fastq-gz"),
+                    choices=("fastq", "fastq-gz", "bam", "bcl", "bcl-gz",
+                             "bcl-bgzf"),
                     help="declare the input format instead of trusting "
                          "auto-detection (manual.md:298)")
     al.add_argument("--clusters-at-a-time", type=int, default=0,
                     help="force the batch size (0 = --batch-size / "
                          "--memory-limit auto; manual.md:339)")
+    al.add_argument("--tiles", default=None,
+                    help="comma-separated regexes over 4-digit tile "
+                         "numbers selecting a flowcell subset "
+                         "(manual.md:564)")
+    al.add_argument("--help-defaults", action=_HelpDefaults, nargs=0,
+                    help="tab-delimited list of options and defaults")
+    al.add_argument("--help-md", action=_HelpMd, nargs=0,
+                    help="markdown-formatted help")
     al.add_argument("--start-from", default=None,
                     help="rewind to this state before running")
     al.add_argument("--stop-at", default="BamDone")

@@ -1,8 +1,7 @@
 """FASTQ reading into fixed-shape read batches.
 
-The port's own copy of `isaac_aligner_tpu/io/fastq.py`, unchanged apart
-from `iter_fastq_batches`, which refuses a barcode FASTQ (demultiplexing,
-ROADMAP queue A item 10).  Reference analog:
+The port's own copy of `isaac_aligner_tpu/io/fastq.py`, unchanged.
+Reference analog:
 src/c++/include/io/FastqReader.hh and the FastqSeedSource tile synthesis
 (src/c++/include/workflow/alignWorkflow/FastqDataSource.hh).  The pipeline
 wants rectangular [batch, read_len] uint8 arrays; reads shorter than
@@ -402,25 +401,26 @@ def iter_fastq_batches(path1: str | Path, path2: str | Path | None,
     """Stream synchronized, padded ReadBatch tuples from FASTQ file(s).
 
     The out-of-core analog of the reference's FastqSeedSource tile
-    synthesis (FastqDataSource.hh:41-118): yields (b1, b2 | None, None)
-    with every batch padded to `batch_size` and each stream at its own
-    stable read width, holding only one batch in RAM at a time.  Read-1
-    and read-2 files of different read counts raise ValueError.  A barcode
-    FASTQ (demultiplexing) is not ported (ROADMAP queue A item 10).
+    synthesis (FastqDataSource.hh:41-118): yields
+    (b1, b2 | None, barcode_bases | None) with every batch padded to
+    `batch_size` and each stream at its own stable read width, holding
+    only one batch in RAM at a time.  The barcode FASTQ (an index read,
+    in read-1 order) gives the unpadded [reads, barcode length] base
+    codes.  Files of different read counts raise ValueError.
     """
-    if barcode_path is not None:
-        raise NotImplementedError(
-            "barcode FASTQ input is not ported yet (ROADMAP queue A item 10)")
     st1 = _ColumnarFastqStream(path1, phred_offset)
     st2 = _ColumnarFastqStream(path2, phred_offset) if path2 else None
-    widths = [None, None]         # stable per-stream read_len
+    stb = _ColumnarFastqStream(barcode_path, phred_offset) \
+        if barcode_path else None
+    widths = [None, None, None]   # stable per-stream read_len
 
-    def _mk(parsed, slot: int) -> ReadBatch:
+    def _mk(parsed, slot: int, pad_rows: bool) -> ReadBatch:
         names, bases, quals, lengths = parsed
         b = ReadBatch(names=names, bases=bases, quals=quals, lengths=lengths)
         if widths[slot] is None:
             widths[slot] = b.read_len
-        return pad_batch(_widen(b, widths[slot]), batch_size)
+        b = _widen(b, widths[slot])
+        return pad_batch(b, batch_size) if pad_rows else b
 
     try:
         while True:
@@ -430,16 +430,21 @@ def iter_fastq_batches(path1: str | Path, path2: str | Path | None,
                     raise ValueError("fastq1/fastq2 read counts differ")
                 return
             n1 = len(chunk1[0])
-            b1 = _mk(chunk1, 0)
-            b2 = None
+            b1 = _mk(chunk1, 0, True)
+            b2 = bc = None
             if st2 is not None:
                 chunk2 = st2.next_batch(n1)
                 if chunk2 is None or len(chunk2[0]) != n1:
                     raise ValueError("fastq1/fastq2 read counts differ")
-                b2 = _mk(chunk2, 1)
-            yield b1, b2, None
+                b2 = _mk(chunk2, 1, True)
+            if stb is not None:
+                chunkb = stb.next_batch(n1)
+                if chunkb is None or len(chunkb[0]) != n1:
+                    raise ValueError("barcode FASTQ read count differs")
+                bc = _mk(chunkb, 2, False).bases
+            yield b1, b2, bc
     finally:
-        for st in (st1, st2):
+        for st in (st1, st2, stb):
             if st is not None:
                 st.close()
 

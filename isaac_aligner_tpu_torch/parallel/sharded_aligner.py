@@ -164,6 +164,10 @@ class ShardedPairedAligner(PairedAligner):
             masked.append(ReadBatch(b.names, bases, quals, b.lengths))
             orig.append(o)
             trims.append(t)
+        if getattr(b1, "tls_hint", None) is not None:
+            # the masked copy reaches _apply_rescue: with the batch's model
+            # its skip count follows the program's rescue
+            masked[0].tls_hint = b1.tls_hint
         out = sharded_align_paired_full(
             self.mesh, self.placed, orig[0][0], orig[0][1], orig[1][0],
             orig[1][1], self.cfg, btls, trims[0].astype(np.int32),

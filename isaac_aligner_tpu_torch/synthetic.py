@@ -10,14 +10,18 @@ short insertion or deletion so the gapped polish has work.  Pairs
 read 1 at the fragment start, read 2 the reverse complement of its end)
 with a drawn insert length, both strands, damaged mates that only the
 shadow rescue can place and far mates that make disjoined pairs.
+Barcodes (`make_barcodes`, `barcode_reads`) and `write_pair_run_folder`
+turn pairs into a demultiplexed Illumina run folder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 
+from .io import bcl
 from .io.fasta import ContigMeta, Genome
 
 #: (element length, copies, divergence) of the benchmark's families
@@ -185,3 +189,106 @@ def make_pairs(rng: np.random.Generator, codes: np.ndarray, n: int,
                     start2=start2.astype(np.int64),
                     reverse1=~fwd, reverse2=fwd.copy(), insert=frag,
                     damaged=damaged, far=far)
+
+
+def make_barcodes(rng: np.random.Generator, n: int, length: int = 8,
+                  min_distance: int = 3) -> list[str]:
+    """`n` random barcodes of `length` bases, each pair at Hamming
+    distance >= min_distance (so one mismatch still resolves)."""
+    out: list[np.ndarray] = []
+    while len(out) < n:
+        c = rng.integers(0, 4, length).astype(np.uint8)
+        if all(int((c != o).sum()) >= min_distance for o in out):
+            out.append(c)
+    return ["".join("ACGT"[x] for x in c) for c in out]
+
+
+def barcode_reads(rng: np.random.Generator, n: int, barcodes: list[str],
+                  mismatch_frac: float = 0.01, random_frac: float = 0.02
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Index reads of `n` clusters: each carries barcodes[i % len], a
+    mismatch_frac share with one substituted base, a random_frac share a
+    random barcode instead.  Returns (codes uint8 [n, length], the planted
+    sample index or -1 for the random ones, the one-mismatch mask)."""
+    codes = np.stack([np.frombuffer(b.encode(), np.uint8) for b in barcodes])
+    codes = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), codes)
+    sample = np.arange(n) % len(barcodes)
+    out = codes[sample].astype(np.uint8)
+    length = out.shape[1]
+    u = rng.random(n)
+    mism = u < mismatch_frac
+    rand = (u >= mismatch_frac) & (u < mismatch_frac + random_frac)
+    rows = np.nonzero(mism)[0]
+    col = rng.integers(0, length, rows.size)
+    out[rows, col] = (out[rows, col] + rng.integers(1, 4, rows.size)) % 4
+    out[rand] = rng.integers(0, 4, (int(rand.sum()), length))
+    return out, np.where(rand, -1, sample), mism
+
+
+def write_pair_run_folder(run_folder, bases1: np.ndarray, bases2: np.ndarray,
+                          index: np.ndarray, lanes, pf: np.ndarray | None = None,
+                          quals: int = 30, clocs: bool = False,
+                          flowcell: str = "FCSIM") -> dict:
+    """An Illumina run folder of paired clusters, cycles y<L>,i<B>,y<L>
+    (read 1, index read, read 2), written with the port's writers.
+
+    `lanes` is [(lane, layout, tiles)]: layout "per_cycle" (one .bcl.gz a
+    cycle and tile, a .filter a tile) or "bgzf" (the NextSeq layout: one
+    BGZF .bcl.bgzf a cycle holding the lane's tiles, s_<lane>.bci and one
+    lane filter).  Clusters go to the tiles in order, equal shares (the
+    last tile takes the rest); `pf` (default all) marks those passing the
+    filter.  Every tile gets cluster positions, one cluster per 25-unit
+    bin with offsets drawn from a generator seeded by the cluster count:
+    .clocs with `clocs`, else .locs.  Returns
+    the planted per-cluster "lane", "tile", "x" and "y" (the CASAVA
+    integers read names and ZX/ZY carry)."""
+    run = Path(run_folder)
+    n, read_len = bases1.shape
+    pf = np.ones(n, bool) if pf is None else np.asarray(pf, bool)
+    info = bcl.RunInfo(flowcell=flowcell, instrument="SIM", run_number=1,
+                       reads=[bcl.ReadSegment(1, read_len, False),
+                              bcl.ReadSegment(2, index.shape[1], True),
+                              bcl.ReadSegment(3, read_len, False)],
+                       lane_count=max(lane for lane, _l, _t in lanes))
+    rng = np.random.default_rng(n)
+    out = {k: np.zeros(n, np.int64) for k in ("lane", "tile", "x", "y")}
+    n_tiles = sum(len(tiles) for _lane, _l, tiles in lanes)
+    share = n // n_tiles
+    at = 0
+    for li, (lane, layout, tiles) in enumerate(lanes):
+        bgzf_tiles = []
+        for ti, tile in enumerate(tiles):
+            last = li == len(lanes) - 1 and ti == len(tiles) - 1
+            rows = np.arange(at, n if last else at + share)
+            at = rows[-1] + 1
+            k = np.arange(rows.size)
+            dx = rng.integers(0, 250, rows.size)
+            dy = rng.integers(0, 250, rows.size)
+            bx, by = k % 82, k // 82
+            x = bx * 25 + dx / 10.0
+            y = by * 25 + dy / 10.0
+            out["lane"][rows], out["tile"][rows] = lane, tile
+            out["x"][rows] = 250 * bx + dx + 1000
+            out["y"][rows] = 250 * by + dy + 1000
+            segs = [(b[rows], np.full((rows.size, b.shape[1]), quals,
+                                      np.uint8))
+                    for b in (bases1, index, bases2)]
+            pos = run / "Data" / "Intensities" / f"L{lane:03d}"
+            if layout == "per_cycle":
+                bcl.write_run_folder(run, info, lane, tile, segs, pf=pf[rows],
+                                     x=x, y=y, compress=True)
+            elif layout == "bgzf":
+                bgzf_tiles.append((tile, segs))
+                pos.mkdir(parents=True, exist_ok=True)
+                bcl.write_locs(pos / f"s_{lane}_{tile}.locs", x, y)
+            else:
+                raise ValueError(f"unknown run-folder layout {layout!r}")
+            if clocs:
+                (pos / f"s_{lane}_{tile}.locs").unlink()
+                bcl.write_clocs(pos / f"s_{lane}_{tile}.clocs", x, y)
+        if bgzf_tiles:
+            bcl.write_run_folder_bgzf(run, info, lane, bgzf_tiles)
+            lane_pf = pf[out["lane"] == lane]
+            bcl.write_filter(run / "Data" / "Intensities" / "BaseCalls"
+                             / f"L{lane:03d}" / f"s_{lane}.filter", lane_pf)
+    return out

@@ -1,8 +1,8 @@
-"""The checkpointed alignment workflow, FASTQ to sorted BAM.
+"""The checkpointed alignment workflow: reads to sorted BAM.
 
-Port of the single-device, FASTQ-input paths (single-end and paired-end)
-of `isaac_aligner_tpu/workflow/align.py` (reference workflow::AlignWorkflow,
-src/c++/include/workflow/AlignWorkflow.hh:64-292): a phase state machine
+Port of `isaac_aligner_tpu/workflow/align.py` (reference
+workflow::AlignWorkflow, src/c++/include/workflow/AlignWorkflow.hh:64-292),
+every input and mode of it: a phase state machine
 whose state serializes to Temp/AlignerState.json after every completed
 phase, with --start-from / --stop-at rewind semantics.  `STATES` and the
 on-disk layout of Temp/ (AlignerState.json, bins/bin_*/chunk_*.cols,
@@ -11,12 +11,26 @@ the BAM, its .bai and its .md5 are byte-equal to the JAX workflow's on the
 same inputs.
 
     Start -> TlsDone      pairs: template-length statistics learned from
-                          the first batches (or --tls), saved with the state
+                          the first batches (or --tls; --per-tile-tls adds
+                          one model per run-folder tile), saved with the
+                          state
           -> AlignDone    align all batches on `device`; columnar records
                           stream to genomic bins (output process)
           -> ReportsDone  stats JSON/XML + HTML report
           -> BamDone      per bin: coordinate sort, duplicate marking,
                           known-gap realignment; BGZF BAM + .bai + .md5
+
+The reads come from FASTQ (a file, a pair of files, or a directory of
+lane<N>_read<R>.fastq[.gz] files; a barcode FASTQ beside them), an
+Illumina BCL run folder (`io/bcl.py`, tile by tile, both layouts, with
+--use-bases-mask, --tiles and the lane and tile subsets) or an existing
+BAM (`io/bam_input.py`, streamed with a cross-chunk mate cache).  A sample
+sheet demultiplexes the run: barcodes resolve in the output process, and
+each sample gets its own out/<sample>/sorted.bam, its own duplicate
+library and its own gap-realignment scope; a sheet with per-barcode
+reference or adapter columns runs one sub-workflow per sample instead
+(`workflow/per_barcode.py`).  Decoding and barcode matching stay on the
+host; every input reaches the card as the same fixed-shape read batches.
 
 The reference is a saved index directory, a FASTA (built in memory; one
 over `group_limit` bases splits into contig groups), a grouped directory
@@ -36,12 +50,10 @@ Build phase alone, so the BAM is byte-equal to a single-process
 `uniform_bins` run with the same `--devices`.  The JAX workflow pads a
 ragged tail with an all-pad batch because its program spans every
 process; here no device work crosses processes, so none is needed.
+--per-tile-tls does not combine with processes (it raises, as in JAX).
 
-Options of the JAX workflow that select a path this slice does not run
-raise NotImplementedError naming their ROADMAP item (`check_ported`); none
-of them quietly takes another path.  The aligner runs on `device` ("cuda" by
-default; "cuda" without a card, or more devices than the visible cards,
-raises before any work).
+The aligner runs on `device` ("cuda" by default; "cuda" without a card,
+or more devices than the visible cards, raises before any work).
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from ..device import require_device
 from ..index.build import SeedIndex, build_index
 from ..io import sam
 from ..io.fasta import read_fasta
+from ..io.fastq import ReadBatch, pad_batch
 
 STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
 
@@ -140,26 +153,24 @@ def parse_tls_override(spec: str) -> TlsStatic:
 
 @dataclasses.dataclass
 class WorkflowOptions:
-    """The JAX workflow's options, field for field, plus `device`.
-
-    The FASTQ paths (single-end and paired-end) honour every option that
-    acts on them.  The options of inputs and modes the port does not run
-    are kept so that both packages take the same keywords: the ones that
-    select such a path raise (`check_ported`), the ones that only tune one
-    have no effect here, as in the JAX workflow's FASTQ runs."""
+    """The JAX workflow's options, field for field, plus `device`; each
+    acts here as it does there (an option of another input, such as a BCL
+    one on a FASTQ run, has no effect in either)."""
 
     reference: str                      # FASTA path or saved index directory
     output_dir: str
     fastq1: str | None = None
     fastq2: str | None = None           # paired-end when set
-    bam_input: str | None = None        # BAM input: not ported
-    run_folder: str | None = None       # BCL run folder: not ported
-    lanes: tuple[int, ...] | None = None    # lane subset of a FASTQ lane dir
-    tiles: tuple[int, ...] | None = None    # BCL only
-    pf_only: bool = True                # BCL only
-    use_bases_mask: str | None = None   # BCL only
-    ignore_missing_bcls: bool = False   # BCL only
-    ignore_missing_filters: bool = False    # BCL only
+    bam_input: str | None = None        # realign from an existing BAM
+    run_folder: str | None = None       # BCL run folder (Illumina input)
+    # lane subset of a run folder or of a FASTQ lane directory
+    lanes: tuple[int, ...] | None = None
+    tiles: tuple[int, ...] | None = None    # BCL tile subset
+    pf_only: bool = True                # BCL: drop non-pass-filter clusters
+    use_bases_mask: str | None = None   # BCL: y/n/i per-cycle mask grammar
+    # BCL: missing cycle files read as N / missing filters as all-PF
+    ignore_missing_bcls: bool = False
+    ignore_missing_filters: bool = False
     seed_len: int = 32
     group_limit: int = 2**31 - 1
     batch_size: int = 4096
@@ -175,9 +186,12 @@ class WorkflowOptions:
     clip_semialigned: bool = True
     clip_overlapping: bool = True       # paired only
     adapters: tuple[str, ...] = ()
-    sample_sheet: str | None = None     # demultiplexing: not ported
-    barcode_fastq: str | None = None    # demultiplexing only
-    barcode_mismatches: int = 1         # demultiplexing only
+    # demultiplexing: CSV with barcode,sample[,project,lane,reference,
+    # adapter]; the index (I1) FASTQ of a FASTQ run, in read-1 order; the
+    # mismatches allowed per barcode component
+    sample_sheet: str | None = None
+    barcode_fastq: str | None = None
+    barcode_mismatches: int = 1
     # known-gap realignment in the Build phase: no | sample | project | all
     realign_gaps: str = "sample"
     gap_scoring: str = "bwa"
@@ -201,7 +215,8 @@ class WorkflowOptions:
     semialigned_gap_limit: int = 100
     shadow_scan_range: int = -1         # paired only
     realigned_gaps_per_fragment: int = 4
-    single_library_samples: bool = True     # BCL only (lanes from names)
+    # 0: each lane its own duplicate library (BCL: lanes from read names)
+    single_library_samples: bool = True
     qscore_bin: bool = False
     qscore_bin_values: str = ("0:0,1:1,2-9:6,10-19:15,20-24:22,25-29:27,"
                               "30-34:33,35-39:37,40-63:40")
@@ -210,7 +225,8 @@ class WorkflowOptions:
     bam_header_tags: tuple[str, ...] = ()
     input_parallel_load: int = 2
     output_parallel_save: int = 2
-    per_tile_tls: bool = False          # BCL paired-end only (no effect on FASTQ)
+    # BCL paired-end: one TLS model per tile (an extra pass over the tiles)
+    per_tile_tls: bool = False
     ignore_neighbors: bool = False
     ignore_repeats: bool = False
     scatter_repeats: bool = False
@@ -230,7 +246,7 @@ class WorkflowOptions:
     pre_sort_bins: bool = True
     base_calls_format: str | None = None
     clusters_at_a_time: int = 0
-    tiles_regex: str | None = None      # BCL only
+    tiles_regex: str | None = None      # BCL: regexes over tile numbers
     # multi-process runs: the gloo coordinator host:port, the process count
     # (> 1 enables them) and this process's id (or ISAAC_TPU_DIST_* env)
     dist_coordinator: str | None = None
@@ -271,33 +287,8 @@ class WorkflowOptions:
         return frozenset(tags)
 
 
-#: (option, what it asks for, ROADMAP queue A item) for every option that
-#: selects a path the port does not run; the options that act only on
-#: those paths (the BCL and barcode ones) have no effect on a FASTQ run in
-#: the JAX workflow either
-_NOT_PORTED = (
-    ("run_folder", "BCL run-folder input", 8),
-    ("bam_input", "BAM input", 9),
-    ("sample_sheet", "demultiplexing (sample sheets, per-barcode runs)", 10),
-)
-
-
-def check_ported(opts: WorkflowOptions) -> None:
-    """Raise NotImplementedError for an input option whose path is not
-    ported (BCL run folders, BAM input, sample sheets)."""
-    def refuse(what: str, item: int) -> None:
-        raise NotImplementedError(
-            f"{what} is not ported to isaac_aligner_tpu_torch yet (ROADMAP "
-            f"queue A item {item})")
-
-    for name, what, item in _NOT_PORTED:
-        if getattr(opts, name):
-            refuse(what, item)
-
-
 class AlignWorkflow:
     def __init__(self, opts: WorkflowOptions):
-        check_ported(opts)
         self.opts = opts
         self.out = Path(opts.output_dir)
         self.temp = self.out / "Temp"
@@ -305,7 +296,14 @@ class AlignWorkflow:
         for d in (self.out, self.temp, self.stats_dir):
             d.mkdir(parents=True, exist_ok=True)
         self.state = "Start"
+        self._reads_cache = None
+        self._demux_cache = None
+        # a per-barcode sub-workflow's demultiplexed batch stream
+        # (workflow/per_barcode.py)
+        self._stream_factory = None
         self.tls: TlsStatic | None = None
+        # --per-tile-tls: (lane, tile) -> TlsStatic fields
+        self.tls_by_tile: dict | None = None
         self._index: list[SeedIndex] | None = None
         self._stats: dict = {}
         self._bin_cache = None
@@ -322,6 +320,9 @@ class AlignWorkflow:
         doc = {"state": self.state, "stats": self._stats}
         if self.tls is not None:
             doc["tls"] = dataclasses.asdict(self.tls)
+        if self.tls_by_tile:
+            doc["tls_by_tile"] = {f"{k[0]}:{k[1]}": v
+                                  for k, v in self.tls_by_tile.items()}
         self.state_file.write_text(json.dumps(doc, indent=2))
 
     def load_state(self) -> None:
@@ -331,6 +332,9 @@ class AlignWorkflow:
             self._stats = doc.get("stats", {})
             if "tls" in doc:
                 self.tls = TlsStatic(**doc["tls"])
+            if "tls_by_tile" in doc:
+                self.tls_by_tile = {tuple(k.split(":")): v
+                                    for k, v in doc["tls_by_tile"].items()}
 
     def rewind(self, start_from: str) -> None:
         """Reference AlignWorkflow::rewind — drop back to an earlier state."""
@@ -447,10 +451,27 @@ class AlignWorkflow:
 
     @property
     def _paired(self) -> bool:
+        """A run folder with two data reads, a BAM of paired records (its
+        whole read set is loaded to tell, as in JAX), or a second FASTQ."""
+        if self.opts.run_folder:
+            from ..io.bcl import parse_run_info
+            info = parse_run_info(Path(self.opts.run_folder))
+            return len(info.data_reads) >= 2
+        if self.opts.bam_input:
+            return self._load_all_reads()[1] is not None
         if self.opts.fastq1 and Path(self.opts.fastq1).is_dir():
             files = self._fastq_lane_files()
             return bool(files) and files[0][1] is not None
         return bool(self.opts.fastq2)
+
+    def _load_all_reads(self):
+        """(read-1 batch, read-2 batch or None) of a whole BAM input, kept:
+        the pairedness probe and the read count of a BAM run (the
+        streamed batches come from `_raw_batch_stream`)."""
+        if self._reads_cache is None:
+            from ..io.bam_input import reads_from_bam
+            self._reads_cache = reads_from_bam(self.opts.bam_input)
+        return self._reads_cache
 
     # -- phases -------------------------------------------------------------
 
@@ -484,9 +505,49 @@ class AlignWorkflow:
             index, read_len=read_len, cfg=self._align_config(read_len, index),
             device=self.opts.device)
         self.tls = aligner.learn_tls(learn)
-        aligner.release_device()
         self._apply_mate_drift()
         self._stats["tls"] = dataclasses.asdict(self.tls)
+        if self.opts.per_tile_tls and self.opts.run_folder:
+            self._learn_per_tile_tls(aligner)
+        aligner.release_device()
+
+    @staticmethod
+    def _tile_key_of(name: str) -> tuple[str, str] | None:
+        """(lane, tile) from an Illumina read name, or None."""
+        parts = name.split(":")
+        return (parts[3], parts[4]) if len(parts) >= 5 else None
+
+    def _learn_per_tile_tls(self, aligner) -> None:
+        """--per-tile-tls: one extra pass over the (tile-ordered) BCL
+        stream learning a model per tile from its first tls_batches
+        batches (reference: MatchSelector::determineTemplateLength runs
+        per tile, MatchSelector.cpp:188-256).  The align phase's feed
+        hangs each tile's model on its batches (`tls_hint`), which every
+        aligner's `_batch_tls` reads.  As in JAX, the hint takes no
+        --mate-drift-range, and the host rescue of the single-device
+        drivers reads the global model: it receives the masked copies of
+        the batch, which carry no hint."""
+        by_tile: dict = {}
+        cur = None
+        collected: list = []
+
+        def finish(key, batches):
+            if key is None or not batches:
+                return
+            aligner.learn_tls(batches)
+            by_tile[key] = dataclasses.asdict(aligner.tls)
+
+        for b1, b2, _bc in self._batch_stream():
+            key = self._tile_key_of(b1.names[0])
+            if key != cur:
+                finish(cur, collected)
+                cur, collected = key, []
+            if len(collected) < self.opts.tls_batches:
+                collected.append((b1, b2))
+        finish(cur, collected)
+        self.tls_by_tile = by_tile
+        self._stats["tls_per_tile"] = {f"{k[0]}:{k[1]}": v
+                                       for k, v in by_tile.items()}
 
     def _align_config(self, read_len: int, index: SeedIndex) -> AlignConfig:
         o = self.opts
@@ -532,7 +593,7 @@ class AlignWorkflow:
         from ..io.fastq import LazyNames
         from ..utils.pipeline import OrderedStage, prefetch_iter
         from . import output_proc as op
-        from .stats_agg import tile_agg
+        from .stats_agg import coords_from_names, tile_agg
 
         index = self._load_index()
         indexes = self._load_indexes()
@@ -546,6 +607,9 @@ class AlignWorkflow:
             self.opts = dataclasses.replace(
                 self.opts, batch_size=-(-self.opts.batch_size // d) * d)
         o = self.opts
+        if mh and o.per_tile_tls:
+            raise ValueError("--per-tile-tls does not combine with "
+                             "multi-host execution yet")
         stream = self._batch_stream()
         first = next(stream, None)
         if first is None:
@@ -628,6 +692,7 @@ class AlignWorkflow:
         if paired and self.tls is not None:
             aligner.tls = self.tls
 
+        rg_names = self._demux_names()
         records_per_bin = self._records_per_bin(read_len)
         self._stats["records_per_bin"] = records_per_bin
         n_bins = max(1, -(-self._estimate_total_reads() * ends
@@ -655,10 +720,12 @@ class AlignWorkflow:
         stats = {"total_reads": 0, "aligned": 0, "perfect": 0,
                  "proper_pairs": 0, "mapq_hist": np.zeros(61, np.int64)}
         per_tile: dict[tuple[str, str], dict] = {}
-        # the name sidecar rides a queue so the aligner's input stays a
-        # plain batch iterator
+        demux_counts = np.zeros(len(rg_names) or 1, np.int64)
+        # the barcode/name sidecar rides a queue so the aligner's input
+        # stays a plain batch iterator
         sidecar: deque = deque()
         t_host = {"parse": 0.0, "convert": 0.0}
+        tls_by_tile = self.tls_by_tile
 
         def feed():
             it = iter(stream)
@@ -672,24 +739,45 @@ class AlignWorkflow:
                     return
                 if mh and gidx % nproc != pid:
                     continue   # another process's stripe
-                b1, b2, _bc = nxt
-                # names stay columnar/lazy; conversion needs the count
-                sidecar.append((b1.names, b1.n_valid, gidx))
+                b1, b2, bc = nxt
+                # names stay columnar/lazy for FASTQ (run folders give
+                # strings); conversion needs the count
+                sidecar.append((bc, b1.names, b1.n_valid, gidx))
+                if tls_by_tile and paired:
+                    # --per-tile-tls: this tile's model rides the batch
+                    # object itself to every aligner's _batch_tls
+                    doc = tls_by_tile.get(self._tile_key_of(b1.names[0]))
+                    if doc is not None:
+                        b1.tls_hint = TlsStatic(**doc)
                 yield (b1, b2) if paired else b1
+
+        def aux_for(bc_bases, names, n_valid: int):
+            """The sample sheet's RG/BC columns and the run folder's ZX/ZY
+            of one batch, or None."""
+            rg = bc = zx = zy = None
+            if rg_names:
+                rg, bc = self._resolve_rg(bc_bases, n_valid)
+            if o.run_folder and not {"ZX", "ZY"} <= o.excluded_tags():
+                zx, zy = coords_from_names(list(names[:n_valid]))
+            if rg is None and zx is None:
+                return None
+            return fstore.AuxColumns(rg=rg, rg_names=rg_names, bc=bc,
+                                     zx=zx, zy=zy)
 
         def convert_emit(inputs, res):
             t1 = time.perf_counter()
-            _names, _n_valid, gidx = sidecar.popleft()
+            bc_bases, names, n_valid, gidx = sidecar.popleft()
+            aux = aux_for(bc_bases, names, n_valid)
             if paired:
                 fb = fstore.from_paired_result(
                     genome, inputs[0], inputs[1], res,
-                    mapq_cap=aligner.cfg.mapq_cap,
+                    mapq_cap=aligner.cfg.mapq_cap, aux=aux,
                     pessimistic=o.pessimistic_mapq,
                     mapq_threshold=o.mapq_threshold)
             else:
                 fb = fstore.from_single_result(
                     genome, inputs, res, mapq_cap=aligner.cfg.mapq_cap,
-                    mapq_threshold=o.mapq_threshold)
+                    aux=aux, mapq_threshold=o.mapq_threshold)
             mapped = (fb.flag & sam.FLAG_UNMAPPED) == 0
             stats["total_reads"] += len(fb)
             stats["aligned"] += int(mapped.sum())
@@ -700,35 +788,51 @@ class AlignWorkflow:
             stats["proper_pairs"] += int(
                 (((fb.flag & sam.FLAG_PROPER_PAIR) != 0)
                  & ((fb.flag & sam.FLAG_READ1) != 0)).sum())
-            # FASTQ inputs: one synthesized tile per batch, as the
-            # reference's FastqDataSource.hh:41-118 does
-            tile_agg(None, fb, mapped, per_tile, (),
-                     synth_tile=("1", f"{gidx:04d}"))
+            if rg_names:
+                first = (fb.flag & sam.FLAG_READ2) == 0
+                np.add.at(demux_counts, np.maximum(fb.rg[first], 0), 1)
+            if o.run_folder:
+                valid = list(names[:n_valid])
+                rec_names = np.repeat(np.asarray(valid, dtype="U"),
+                                      len(fb) // max(len(valid), 1))
+                tile_agg(rec_names, fb, mapped, per_tile, rg_names)
+            else:
+                # FASTQ/BAM inputs: one synthesized tile per batch, as the
+                # reference's FastqDataSource.hh:41-118 does
+                tile_agg(None, fb, mapped, per_tile, rg_names,
+                         synth_tile=("1", f"{gidx:04d}"))
             store.add(fb, seq=gidx)
             t_host["convert"] += time.perf_counter() - t1
 
         batches = prefetch_iter(feed(), depth=max(1, o.input_parallel_load))
         if op.enabled() and not mh:
+            specs, spec_to_name, unknown, _ = self._demux_setup()
+            excluded = o.excluded_tags()
             proc = op.OutputProcess(dict(
                 bins_dir=str(bins_dir),
                 contig_offsets=np.asarray(genome.contig_offsets),
                 genome_bp=genome.total_length, n_bins=n_bins,
                 sample_cap=store.sample_cap, pre_sort=o.pre_sort_bins,
-                uniform=bool(o.uniform_bins),
+                uniform=bool(o.uniform_bins), rg_names=rg_names,
                 mapq_cap=aligner.cfg.mapq_cap, paired=paired,
                 pessimistic=o.pessimistic_mapq,
-                mapq_threshold=o.mapq_threshold))
+                mapq_threshold=o.mapq_threshold,
+                run_folder=bool(o.run_folder),
+                want_bc="BC" not in excluded,
+                want_zxzy=not {"ZX", "ZY"} <= excluded,
+                barcode_mismatches=o.barcode_mismatches,
+                specs=specs, spec_to_name=spec_to_name, unknown=unknown))
 
             def submit_proc(inputs, res):
                 t1 = time.perf_counter()
-                names, n_valid, gidx = sidecar.popleft()
+                bc_bases, names, n_valid, gidx = sidecar.popleft()
                 if not isinstance(names, LazyNames):
                     names = LazyNames.from_list(list(names))
                 b1 = inputs[0] if paired else inputs
                 b2 = inputs[1] if paired else None
                 res2 = {k: v for k, v in res.items()
                         if not k.startswith("cand_")}
-                proc.submit((gidx, n_valid, names.mat, names.lens,
+                proc.submit((gidx, n_valid, names.mat, names.lens, bc_bases,
                              (b1.bases, b1.quals, b1.lengths),
                              (b2.bases, b2.quals, b2.lengths)
                              if b2 is not None else None, res2))
@@ -743,6 +847,7 @@ class AlignWorkflow:
                 stats[k] += out["stats"][k]
             stats["mapq_hist"] += np.asarray(out["stats"]["mapq_hist"],
                                              np.int64)
+            demux_counts += np.asarray(out["demux_counts"], np.int64)
             for k, v in out["per_tile"].items():
                 key = (k[0], k[1], k[2], int(k[3]))
                 agg = per_tile.setdefault(key, dict.fromkeys(v, 0))
@@ -770,6 +875,7 @@ class AlignWorkflow:
                 "mapq_hist")})
             for k, v in merged.items():
                 stats[k] = v if k == "mapq_hist" else int(v)
+            demux_counts[:] = allsum_stats({"d": demux_counts})["d"]
             fs = aligner.finder_stats
             if fs:
                 ints = {k: v for k, v in fs.items() if isinstance(v, int)}
@@ -778,6 +884,13 @@ class AlignWorkflow:
                 fs.pop("tally", None)   # per-process batch lists
             barrier("align_done")
 
+        if rg_names:
+            counts = {nm: int(c) for nm, c in zip(rg_names, demux_counts)
+                      if c}
+            self._stats["demultiplexing"] = counts
+            if not mh or pid == 0:
+                (self.stats_dir / "DemultiplexingStats.json").write_text(
+                    json.dumps(counts, indent=2))
         if per_tile:
             # multi-process: this process's stripe of tiles
             stats["tiles"] = [
@@ -809,12 +922,19 @@ class AlignWorkflow:
             self._stats["match_finder"] = dict(aligner.finder_stats)
 
     def _pu_field(self, sample_name: str) -> str:
-        """--bam-pu-format (manual.md:281): expand %F (flowcell id; FASTQ
-        inputs have none), %L (lane list) and %B (barcode/sample) into the
-        @RG PU field."""
+        """--bam-pu-format (manual.md:281): expand %F (the run folder's
+        flowcell id; "unknown" for other inputs), %L (lane list) and %B
+        (barcode/sample) into the @RG PU field."""
         o = self.opts
+        fc = "unknown"
+        if o.run_folder:
+            from ..io.bcl import parse_run_info
+            try:
+                fc = parse_run_info(Path(o.run_folder)).flowcell
+            except Exception:
+                pass
         lanes = ",".join(str(x) for x in o.lanes) if o.lanes else "all"
-        return (o.bam_pu_format.replace("%F", "unknown").replace("%L", lanes)
+        return (o.bam_pu_format.replace("%F", fc).replace("%L", lanes)
                 .replace("%B", sample_name))
 
     def _check_base_calls_format(self) -> None:
@@ -830,22 +950,90 @@ class AlignWorkflow:
         if fmt not in allowed:
             raise InvalidOptionError(
                 f"--base-calls-format {fmt!r}: expected one of {allowed}")
-        if fmt in ("bcl", "bcl-gz", "bcl-bgzf"):
+        if fmt in ("bcl", "bcl-gz", "bcl-bgzf") and not o.run_folder:
             raise InvalidOptionError(
                 f"--base-calls-format {fmt}: needs --run-folder input")
-        if fmt == "bam":
+        if fmt == "bam" and not o.bam_input:
             raise InvalidOptionError(
                 "--base-calls-format bam: needs --bam input")
-        if not o.fastq1:
-            raise InvalidOptionError(
-                f"--base-calls-format {fmt}: needs --fastq1 input")
-        if not Path(o.fastq1).is_dir():
-            with open(o.fastq1, "rb") as f:
-                is_gz = f.read(2) == b"\x1f\x8b"
-            if is_gz != (fmt == "fastq-gz"):
+        if fmt.startswith("fastq"):
+            if not o.fastq1:
                 raise InvalidOptionError(
-                    f"--base-calls-format {fmt}: {o.fastq1} is "
-                    f"{'gzipped' if is_gz else 'plain'} FASTQ")
+                    f"--base-calls-format {fmt}: needs --fastq1 input")
+            if not Path(o.fastq1).is_dir():
+                with open(o.fastq1, "rb") as f:
+                    is_gz = f.read(2) == b"\x1f\x8b"
+                if is_gz != (fmt == "fastq-gz"):
+                    raise InvalidOptionError(
+                        f"--base-calls-format {fmt}: {o.fastq1} is "
+                        f"{'gzipped' if is_gz else 'plain'} FASTQ")
+
+    def _demux_setup(self):
+        """(specs, spec index -> sample-name index, unknown index, RG
+        names), cached; no sample sheet gives (None, None, 0, ()).
+        Reference analog: BarcodeBamMapping construction."""
+        if self._demux_cache is None:
+            if not self.opts.sample_sheet:
+                self._demux_cache = (None, None, 0, ())
+            else:
+                from ..demultiplexing.samplesheet import (UNKNOWN_SAMPLE,
+                                                          parse_sample_sheet)
+                specs = parse_sample_sheet(self.opts.sample_sheet)
+                sample_names: list[str] = []
+                for sp in specs:
+                    if sp.sample not in sample_names:
+                        sample_names.append(sp.sample)
+                unknown = len(sample_names)
+                rg_names = tuple(sample_names) + (UNKNOWN_SAMPLE,)
+                spec_to_name = np.full(max(sp.index for sp in specs) + 1,
+                                       unknown, np.int32)
+                for sp in specs:
+                    spec_to_name[sp.index] = sample_names.index(sp.sample)
+                self._demux_cache = (specs, spec_to_name, unknown, rg_names)
+        return self._demux_cache
+
+    def _demux_names(self) -> tuple[str, ...]:
+        return self._demux_setup()[3]
+
+    def _resolve_rg(self, bc_bases, n: int):
+        """Per-batch barcode resolution -> (rg column, BC ascii or None)."""
+        from .. import dna
+        from ..demultiplexing.resolver import resolve_barcodes
+        specs, spec_to_name, unknown, _ = self._demux_setup()
+        if specs is None:
+            return None, None
+        if bc_bases is None:
+            # no index read: everything lands on the unknown sample
+            return np.full(n, unknown, np.int32), None
+        bidx = resolve_barcodes(bc_bases, specs, self.opts.barcode_mismatches)
+        rg = np.where(bidx >= 0, spec_to_name[np.maximum(bidx, 0)],
+                      unknown).astype(np.int32)
+        bc = None
+        if "BC" not in self.opts.excluded_tags():
+            bc = dna.CODE_TO_BASE[np.minimum(bc_bases, 4)]
+        return rg, bc
+
+    def _bcl_tile_list(self) -> list[tuple[int, int]]:
+        """(lane, tile) of every tile the run aligns: --lane and --tile
+        subsets (else every lane and tile found), then --tiles regexes
+        fullmatched against the 4-digit tile number (manual.md:564)."""
+        from ..io.bcl import discover_lanes, discover_tiles
+        o = self.opts
+        run = Path(o.run_folder)
+        lanes = list(o.lanes) if o.lanes else discover_lanes(run)
+        out = [(lane, tile) for lane in lanes
+               for tile in (list(o.tiles) if o.tiles
+                            else discover_tiles(run, lane))]
+        if o.tiles_regex:
+            import re
+            pats = [re.compile(p) for p in o.tiles_regex.split(",") if p]
+            out = [(lane, tile) for lane, tile in out
+                   if any(p.fullmatch(f"{tile:04d}") for p in pats)]
+            if not out and not o.allow_empty_flowcells:
+                from ..utils.errors import InvalidOptionError
+                raise InvalidOptionError(
+                    f"--tiles {o.tiles_regex!r} matched no tiles")
+        return out
 
     def _fastq_lane_files(self) -> "list[tuple[str, str | None]]":
         """--fastq1 as a base-calls DIRECTORY: discover
@@ -853,8 +1041,6 @@ class AlignWorkflow:
         (reference FastqLayout.cpp:45-66 naming + --lane-number-max,
         manual.md:419).  A plain file path returns (fastq1, fastq2)."""
         o = self.opts
-        if not o.fastq1:
-            raise ValueError("need --fastq1 (the only input the port reads)")
         p = Path(o.fastq1)
         if not p.is_dir():
             return [(o.fastq1, o.fastq2)]
@@ -874,37 +1060,100 @@ class AlignWorkflow:
         return out
 
     def _estimate_total_reads(self) -> int:
-        """File-size read-count estimate of the streamed read-1 FASTQ
-        (only bin granularity depends on it)."""
-        from ..io.fastq import estimate_fastq_reads
-        return sum(estimate_fastq_reads(r1)
-                   for r1, _ in self._fastq_lane_files())
+        """Read count for bin sizing: cluster-count headers for BCL,
+        file-size estimate for streamed FASTQ, exact for a BAM (only bin
+        granularity depends on it)."""
+        o = self.opts
+        if o.run_folder:
+            from ..io.bcl import peek_tile_cluster_count
+            return sum(peek_tile_cluster_count(o.run_folder, lane, tile)
+                       for lane, tile in self._bcl_tile_list())
+        if o.fastq1 and not o.bam_input:
+            from ..io.fastq import estimate_fastq_reads
+            return sum(estimate_fastq_reads(r1)
+                       for r1, _ in self._fastq_lane_files())
+        return self._load_all_reads()[0].count
 
     def _batch_stream(self):
-        """Yield (b1, b2 | None, None) padded batches with input-side
-        postprocessing on both ends: --qscore-bin quality remapping and
-        the --variable-fastq-read-length uniformity check.  FASTQ streams
-        record block by record block (bounded RAM)."""
-        from ..io.fastq import iter_fastq_batches
+        """Yield (b1, b2 | None, barcode_bases | None) padded batches
+        with input-side postprocessing on both ends: --qscore-bin quality
+        remapping and the --variable-fastq-read-length uniformity check."""
         o = self.opts
         qtab = o.qscore_table()
-        for r1, r2 in self._fastq_lane_files():
-            for b1, b2, bc in iter_fastq_batches(r1, r2, o.batch_size):
-                for b in (b1, b2):
-                    if b is None:
-                        continue
-                    if not o.variable_read_length:
-                        ln = b.lengths[: b.n_valid]
-                        if ln.size and int(ln.min()) != int(ln.max()):
-                            raise ValueError(
-                                f"variable read lengths ({int(ln.min())}.."
-                                f"{int(ln.max())}) in the input; pass "
-                                f"--variable-fastq-read-length to accept "
-                                f"(shorter reads pad with N)")
-                    if qtab is not None:
-                        np.minimum(b.quals, 63, out=b.quals)
-                        b.quals[:] = qtab[b.quals]
-                yield b1, b2, bc
+        for b1, b2, bc in self._raw_batch_stream():
+            for b in (b1, b2):
+                if b is None:
+                    continue
+                if not o.variable_read_length:
+                    ln = b.lengths[: b.n_valid]
+                    if ln.size and int(ln.min()) != int(ln.max()):
+                        raise ValueError(
+                            f"variable read lengths ({int(ln.min())}.."
+                            f"{int(ln.max())}) in the input; pass "
+                            f"--variable-fastq-read-length to accept "
+                            f"(shorter reads pad with N)")
+                if qtab is not None:
+                    np.minimum(b.quals, 63, out=b.quals)
+                    b.quals[:] = qtab[b.quals]
+            yield b1, b2, bc
+
+    def _raw_batch_stream(self):
+        """Yield (b1, b2 | None, barcode_bases | None) padded batches.
+        FASTQ streams record block by record block, BCL run folders tile
+        by tile (the reference's RAM-fit tile batching, SeedMemoryManager
+        / BclSeedSource), BAM BGZF chunk by chunk: bounded RAM for each.
+        Barcodes come with the batches only under a sample sheet.
+
+        A per-barcode sub-workflow injects its demultiplexed stream via
+        `_stream_factory` (workflow/per_barcode.py)."""
+        if self._stream_factory is not None:
+            yield from self._stream_factory()
+            return
+        o = self.opts
+        if o.run_folder:
+            from ..io.bcl import load_tile, parse_run_info, tile_read_batches
+            run = Path(o.run_folder)
+            info = parse_run_info(run)
+            for lane, tile in self._bcl_tile_list():
+                td = load_tile(
+                    run, lane, tile, info,
+                    use_bases_mask=o.use_bases_mask,
+                    ignore_missing_bcls=o.ignore_missing_bcls,
+                    ignore_missing_filters=o.ignore_missing_filters)
+                batches, bars = tile_read_batches(td, info, o.pf_only)
+                if not batches:
+                    raise ValueError(f"{run}: no data reads in RunInfo")
+                if len(batches) > 2:
+                    raise ValueError("more than 2 data reads not supported")
+                b1t = batches[0]
+                b2t = batches[1] if len(batches) > 1 else None
+                bs = o.batch_size
+                for lo in range(0, b1t.count, bs):
+                    hi = min(lo + bs, b1t.count)
+                    yield (self._slice_pad(b1t, lo, hi, bs),
+                           self._slice_pad(b2t, lo, hi, bs)
+                           if b2t is not None else None,
+                           bars[lo:hi] if o.sample_sheet else None)
+            return
+        if o.fastq1 and not o.bam_input:
+            from ..io.fastq import iter_fastq_batches
+            for r1, r2 in self._fastq_lane_files():
+                yield from iter_fastq_batches(
+                    r1, r2, o.batch_size,
+                    barcode_path=o.barcode_fastq if o.sample_sheet else None)
+            return
+        if o.bam_input:
+            # streaming BAM source: BGZF chunks + cross-chunk pair cache
+            # (BamDataSource.hh:41-155)
+            from ..io.bam_input import iter_bam_batches
+            yield from iter_bam_batches(o.bam_input, o.batch_size)
+            return
+        raise ValueError("need --fastq1, --run-folder or --bam input")
+
+    @staticmethod
+    def _slice_pad(b: ReadBatch, lo: int, hi: int, bs: int) -> ReadBatch:
+        return pad_batch(ReadBatch(b.names[lo:hi], b.bases[lo:hi],
+                                   b.quals[lo:hi], b.lengths[lo:hi]), bs)
 
     def _records_per_bin(self, read_len: int) -> int:
         """Bin size in records, capped by --memory-limit.  Per-record
@@ -941,6 +1190,10 @@ class AlignWorkflow:
         reports.write_match_selector_stats_xml(
             stats, self.stats_dir / "MatchSelectorStats.xml",
             sample=self.opts.sample)
+        if "demultiplexing" in self._stats:
+            reports.write_demultiplexing_stats_xml(
+                self._stats["demultiplexing"],
+                self.stats_dir / "DemultiplexingStats.xml")
         if "match_finder" in self._stats:
             reports.write_match_finder_stats_xml(
                 self._stats["match_finder"],
@@ -990,59 +1243,104 @@ class AlignWorkflow:
 
         return lambda d: bool(rx.search(describe(d)))
 
+    def _library_ids(self, fb):
+        """--single-library-samples 0: per-(sample, lane) library ids for
+        duplicate marking; lanes parse from Illumina read names (BCL
+        runs).  Default (1): None, the per-sample fb.rg dedup default."""
+        if self.opts.single_library_samples or not self.opts.run_folder:
+            return None
+        names = np.asarray(fb.names(), dtype="U")
+        parts = np.char.partition(
+            np.char.partition(np.char.partition(names, ":")[:, 2],
+                              ":")[:, 2], ":")[:, 2]
+        lane_s = np.char.partition(parts, ":")[:, 0]
+        lanes = np.zeros(len(fb), np.int64)
+        ok = np.char.isdigit(lane_s)
+        lanes[ok] = lane_s[ok].astype(np.int64)
+        return fb.rg.astype(np.int64) * 64 + lanes
+
     def _process_bin_fb(self, fb, genome):
         """Sort + dedup + realign one bin, columnar (BinSorter::process).
-        Without a sample sheet the whole bin is one library and one
-        gap-sharing scope."""
+        A sample sheet makes each sample a duplicate library (each
+        (sample, lane) with --single-library-samples 0) and its own
+        gap-sharing scope unless --realign-gaps all."""
         from ..build.dedup import coordinate_sort_order, mark_duplicates_batch
         from ..build.realign import realign_batch
 
         o = self.opts
         fb = fb.take(coordinate_sort_order(fb))
         if o.mark_duplicates:
+            lib = self._library_ids(fb)
             # a multi-process Build runs on process 0 alone: per-bin dedup
             mesh = self._mesh() if self._dist[1] == 1 else None
             if mesh is not None:
                 from ..build.dedup import mark_duplicates_collective
-                fb = mark_duplicates_collective(fb, mesh,
-                                                keep=o.keep_duplicates)
+                fb = mark_duplicates_collective(
+                    fb, mesh, keep=o.keep_duplicates, lib=lib)
             else:
                 fb = mark_duplicates_batch(fb, genome.contig_offsets,
-                                           keep=o.keep_duplicates)
+                                           keep=o.keep_duplicates, lib=lib)
         realigned = 0
         if o.realign_gaps != "no":
-            changed = realign_batch(fb, genome,
-                                    max_gaps=o.realigned_gaps_per_fragment,
-                                    realign_dodgy=o.realign_dodgy)
-            realigned += changed
-            # --realign-vigorously: newly created gaps feed another
-            # harvest+realign round (strictly-better acceptance
-            # converges; 3 extra passes bound pathological bins)
-            extra = 0
-            while o.realign_vigorously and changed and extra < 3:
+            if o.realign_gaps == "all" or not o.sample_sheet:
+                scopes = [None]
+            else:
+                # per-sample (or per-project) gap scope: group on RG
+                scopes = [np.nonzero(fb.rg == v)[0] for v in np.unique(fb.rg)]
+            for rows in scopes:
                 changed = realign_batch(
-                    fb, genome, max_gaps=o.realigned_gaps_per_fragment,
+                    fb, genome, rows, max_gaps=o.realigned_gaps_per_fragment,
                     realign_dodgy=o.realign_dodgy)
                 realigned += changed
-                extra += 1
+                # --realign-vigorously: newly created gaps feed another
+                # harvest+realign round (strictly-better acceptance
+                # converges; 3 extra passes bound pathological bins)
+                extra = 0
+                while o.realign_vigorously and changed and extra < 3:
+                    changed = realign_batch(
+                        fb, genome, rows,
+                        max_gaps=o.realigned_gaps_per_fragment,
+                        realign_dodgy=o.realign_dodgy)
+                    realigned += changed
+                    extra += 1
         return fb, realigned
 
     def _emit_fb(self, fb, writers: dict, contigs) -> None:
-        """Write a coordinate-ordered columnar batch to sorted.bam."""
+        """Route a coordinate-ordered columnar batch into the output BAM
+        writer(s): one per sample when demultiplexing (BarcodeBamMapping,
+        out/<sample>/sorted.bam), one sorted.bam otherwise."""
         from ..build.records import apply_tag_exclusions
         from ..io.bam import BamWriter
 
-        w = writers.get(None)
-        if w is None:
-            o = self.opts
-            w = writers[None] = BamWriter(
-                self.out / "sorted.bam", contigs,
-                compression_level=o.compression_level, sample=o.sample,
-                pu=self._pu_field(o.sample), description=o.description,
-                reference_name=o.reference_name,
-                extra_tags=tuple(o.bam_header_tags))
-        w.write_fragment_batch(apply_tag_exclusions(fb,
-                                                    self.opts.excluded_tags()))
+        o = self.opts
+
+        def writer_for(key: str | None) -> BamWriter:
+            w = writers.get(key)
+            if w is None:
+                if key is None:
+                    path, sample_name = self.out / "sorted.bam", o.sample
+                else:
+                    d = self.out / key
+                    d.mkdir(parents=True, exist_ok=True)
+                    path, sample_name = d / "sorted.bam", key
+                w = writers[key] = BamWriter(
+                    path, contigs, compression_level=o.compression_level,
+                    sample=sample_name, pu=self._pu_field(sample_name),
+                    description=o.description,
+                    reference_name=o.reference_name,
+                    extra_tags=tuple(o.bam_header_tags))
+            return w
+
+        excl = o.excluded_tags()
+        if not o.sample_sheet:
+            writer_for(None).write_fragment_batch(
+                apply_tag_exclusions(fb, excl))
+            return
+        for v in np.unique(fb.rg):
+            rows = np.nonzero(fb.rg == v)[0]
+            key = fb.rg_names[v] if 0 <= v < len(fb.rg_names) else "unknown"
+            writer_for(key).write_fragment_batch(
+                apply_tag_exclusions(fb.take(rows), excl))
 
     def _phase_bam(self) -> None:
         """Per-bin sort/dedup/realign + streaming BAM serialization
@@ -1150,7 +1448,7 @@ class AlignWorkflow:
                 raise MemoryError_(
                     f"--memory-control strict: bin of {max_bin} records "
                     f"exceeds twice the {cap}-record budget")
-        if not writers:
+        if not writers and not o.sample_sheet:
             # no records at all: still emit a valid empty BAM
             self._emit_fb(FragmentBatch.empty(0, 1), writers, genome.contigs)
         for w in writers.values():
@@ -1228,6 +1526,16 @@ class AlignWorkflow:
         # the card (or the CPU) must exist before any work: "cuda" without
         # a card raises here, never falls back
         require_device(self.opts.device)
+        # a sample sheet with per-barcode reference/adapter columns runs
+        # one sub-workflow per sample (workflow/per_barcode.py)
+        if self.opts.sample_sheet and self._stream_factory is None:
+            from .per_barcode import (PerBarcodeDriver,
+                                      sheet_has_per_barcode_columns)
+            if sheet_has_per_barcode_columns(self.opts.sample_sheet):
+                # kept: its per-sample results and device bytes
+                self.per_barcode = PerBarcodeDriver(self.opts)
+                self.per_barcode.run()
+                return
         self._n_devices()
         self._check_base_calls_format()
         self._fit_batch_size()

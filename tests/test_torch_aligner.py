@@ -187,7 +187,8 @@ def test_port_runs_without_jax(tmp_path):
     paired-end, with its spawned output process, which re-runs this
     script's top) run on cpu, the paired workflow again against a
     two-group reference from the port's sort-reference, group-major, and
-    over a four-entry mesh with the genome sharded."""
+    over a four-entry mesh with the genome sharded, and a demultiplexed
+    run folder (per-tile TLS, the BAM realigned through --bam)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -276,6 +277,26 @@ def test_port_runs_without_jax(tmp_path):
             assert (d / "spmd" / "sorted.bam").read_bytes() == \
                 (d / "pe" / "sorted.bam").read_bytes()
             assert multihost.init_distributed() == (0, 1)
+            # a BCL run folder under a sample sheet, then its BAM as input
+            idx8, _s, _m = synthetic.barcode_reads(
+                rng, 48, ["ACGTACGT", "TGCATGCA"], 0.1, 0.0)
+            synthetic.write_pair_run_folder(
+                d / "run", sp.bases1, sp.bases2, idx8,
+                [(1, "per_cycle", [1101]), (2, "bgzf", [1101])])
+            (d / "sheet.csv").write_text(
+                "barcode,sample\\nACGTACGT,s1\\nTGCATGCA,s2\\n")
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "idx"), output_dir=str(d / "bcl"),
+                run_folder=str(d / "run"), sample_sheet=str(d / "sheet.csv"),
+                per_tile_tls=True, batch_size=32, device="cpu")).run()
+            s1 = read_bam(d / "bcl" / "s1" / "sorted.bam")[2]
+            s2 = read_bam(d / "bcl" / "s2" / "sorted.bam")[2]
+            assert len(s1) + len(s2) == 96, (len(s1), len(s2))
+            AlignWorkflow(WorkflowOptions(
+                reference=str(d / "idx"), output_dir=str(d / "rebam"),
+                bam_input=str(d / "bcl" / "s1" / "sorted.bam"),
+                batch_size=32, device="cpu")).run()
+            assert len(read_bam(d / "rebam" / "sorted.bam")[2]) == len(s1)
             loaded = {m.split(".")[0] for m in sys.modules
                       if sys.modules[m] is not None}
             assert not loaded & {"jax", "isaac_aligner_tpu"}, loaded

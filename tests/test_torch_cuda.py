@@ -8,6 +8,8 @@ This file imports no jax, so it also runs on a GPU machine without JAX:
 torch.cuda.is_available() is False every test here skips.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -456,3 +458,130 @@ def test_collective_dedup_card_equals_cpu(cuda_device):
     np.testing.assert_array_equal(got, want)
     assert over_g.sum() == over_c.sum() == 0
     assert 0 < got.sum() < n
+
+
+def _input_fixture(tmp: Path) -> dict:
+    """A 250 kbp genome's index, 1,024 pairs as a demultiplexed run folder
+    (two tiles, two samples, a sample sheet) and as FASTQs with a barcode
+    FASTQ and a per-barcode sheet (sample b "unmapped")."""
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.index.build import build_index
+
+    rng = np.random.default_rng(8)
+    genome = synthetic.make_genome(rng, 250_000, families=((600, 10, 0.02),),
+                                   n_island=(150_000, 500))
+    build_index(genome, seed_len=32).save(tmp / "idx")
+    sp = synthetic.make_pairs(rng, genome.codes, 1024)
+    barcodes = ["ACGTACGT", "TGCATGCA"]
+    index, _s, _m = synthetic.barcode_reads(rng, 1024, barcodes, 0.05, 0.05)
+    synthetic.write_pair_run_folder(
+        tmp / "run", sp.bases1, sp.bases2, index,
+        [(1, "per_cycle", [1101]), (2, "bgzf", [1101])],
+        pf=rng.random(1024) > 0.05, clocs=True)
+    (tmp / "sheet.csv").write_text(
+        "barcode,sample\nACGTACGT,a\nTGCATGCA,b\n")
+    (tmp / "per_barcode.csv").write_text(
+        f"barcode,sample,reference\nACGTACGT,a,{tmp / 'idx'}\n"
+        f"TGCATGCA,b,unmapped\n")
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    for name, codes in (("r1", sp.bases1), ("r2", sp.bases2), ("i1", index)):
+        with open(tmp / f"{name}.fq", "w") as f:
+            for i, row in enumerate(letters[codes]):
+                f.write(f"@t{i}\n{row.tobytes().decode()}\n+\n"
+                        f"{'?' * row.size}\n")
+    return {"samples": ["a", "b", "unknown"]}
+
+
+def _core(out: Path, samples) -> tuple[dict, dict]:
+    """{(qname, read): core fields with RG and BC} and MAPQs of every
+    sample's sorted.bam (or out/sorted.bam without samples)."""
+    from isaac_aligner_tpu_torch.io.bam import read_bam
+
+    core, mapq = {}, {}
+    for s in samples or [""]:
+        path = out / s / "sorted.bam"
+        if not path.exists():
+            continue
+        for r in read_bam(path)[2]:
+            key = (r.qname, r.flag & 0xC0)
+            core[key] = (r.flag, r.pos, r.cigar, r.tags.get("NM"), r.rnext,
+                         r.pnext, r.tlen, r.tags.get("RG"), r.tags.get("BC"))
+            mapq[key] = r.mapq
+    return core, mapq
+
+
+def _workflow_card_equals_cpu(tmp: Path, samples, **opts) -> dict:
+    """The workflow (`opts`) on the card and on the CPU: the same saved
+    TLS (and per-tile models) and core fields, MAPQ floor flips only, the
+    kernel launched on the card.  Returns the card run's state."""
+    import json
+
+    from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
+                                                        WorkflowOptions)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"out_{dev}"
+        before = sw.banded_sw.launches
+        AlignWorkflow(WorkflowOptions(
+            reference=str(tmp / "idx"), output_dir=str(out), batch_size=512,
+            device=dev, **opts)).run()
+        state_file = out / "Temp" / "AlignerState.json"
+        state = json.loads(state_file.read_text()) if state_file.exists() \
+            else {}
+        runs[dev] = (state, *_core(out, samples),
+                     sw.banded_sw.launches - before)
+    (st_g, core_g, mq_g, n_g), (st_c, core_c, mq_c, n_c) = runs.values()
+    assert n_g > 0 and n_c == 0
+    assert (st_g.get("tls"), st_g.get("tls_by_tile")) == \
+        (st_c.get("tls"), st_c.get("tls_by_tile"))
+    assert core_g and core_g == core_c
+    dq = np.array([abs(mq_g[k] - mq_c[k]) for k in mq_g])
+    assert dq.max() <= 1 and (dq > 0).sum() <= 0.005 * len(dq)
+    return st_g
+
+
+@pytest.mark.cuda
+def test_run_folder_workflow_card_equals_cpu(cuda_device, tmp_path):
+    fx = _input_fixture(tmp_path)
+    state = _workflow_card_equals_cpu(
+        tmp_path, fx["samples"], run_folder=str(tmp_path / "run"),
+        sample_sheet=str(tmp_path / "sheet.csv"), per_tile_tls=True,
+        bam_exclude_tags="none")
+    assert set(state["tls_by_tile"]) == {"1:1101", "2:1101"}
+
+
+@pytest.mark.cuda
+def test_bam_input_workflow_card_equals_cpu(cuda_device, tmp_path):
+    from isaac_aligner_tpu_torch.workflow.align import (AlignWorkflow,
+                                                        WorkflowOptions)
+
+    _input_fixture(tmp_path)
+    AlignWorkflow(WorkflowOptions(
+        reference=str(tmp_path / "idx"), output_dir=str(tmp_path / "src"),
+        fastq1=str(tmp_path / "r1.fq"), fastq2=str(tmp_path / "r2.fq"),
+        batch_size=512, device="cpu")).run()
+    _workflow_card_equals_cpu(
+        tmp_path, None, bam_input=str(tmp_path / "src" / "sorted.bam"))
+
+
+@pytest.mark.cuda
+def test_per_barcode_workflow_card_equals_cpu(cuda_device, tmp_path):
+    """The per-barcode driver from FASTQ plus a barcode FASTQ on both
+    devices, and the card's allocated memory back at its baseline after
+    each aligning sub-workflow."""
+    from isaac_aligner_tpu_torch.workflow.per_barcode import PerBarcodeDriver
+    from isaac_aligner_tpu_torch.workflow.align import WorkflowOptions
+
+    fx = _input_fixture(tmp_path)
+    kw = dict(fastq1=str(tmp_path / "r1.fq"), fastq2=str(tmp_path / "r2.fq"),
+              barcode_fastq=str(tmp_path / "i1.fq"),
+              sample_sheet=str(tmp_path / "per_barcode.csv"))
+    _workflow_card_equals_cpu(tmp_path, fx["samples"], **kw)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    driver = PerBarcodeDriver(WorkflowOptions(
+        reference=str(tmp_path / "idx"), output_dir=str(tmp_path / "again"),
+        batch_size=512, device="cuda", **kw))
+    driver.run()
+    assert driver.device_bytes == {"a": base, "unknown": base}

@@ -1,10 +1,14 @@
 """The port's own host modules vs the JAX package's, on the same inputs.
 
 The port keeps copies of the JAX package's jax-free host modules (dna,
-io.fasta/fastq/sam/bam, index.build, align.clippers, utils.tracing) so
-that it imports nothing of `isaac_aligner_tpu`.  These tests hold each
-copy to its original, check that index directories cross between the two
-packages, and parse every file of the port for stray imports.
+io.fasta/fastq/sam/bam/bcl/use_bases_mask/bam_input, demultiplexing,
+build.storage, index.build, align.clippers, utils.tracing, workflow
+per_barcode/stats_agg) so that it imports nothing of `isaac_aligner_tpu`.
+These tests hold each copy to its original (the input and demultiplexing
+modules in detail in test_torch_bcl/bam_input/demux.py), check that index
+directories cross between the two packages, that the output process's
+modules import no torch, and parse every file of the port for stray
+imports.
 """
 
 import ast
@@ -69,6 +73,54 @@ def _forbidden_imports(path: Path) -> list[str]:
 @pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
 def test_port_file_imports_no_jax_package(rel):
     assert _forbidden_imports(REPO / rel) == []
+
+
+#: host modules the port copied from the JAX package, under the same names
+HOST_COPIES = ["dna", "io.fastq", "io.bam", "io.bcl",
+               "io.use_bases_mask", "io.bam_input", "demultiplexing",
+               "demultiplexing.samplesheet", "demultiplexing.resolver",
+               "build.storage", "workflow.stats_agg", "workflow.per_barcode"]
+
+
+@pytest.mark.parametrize("name", HOST_COPIES)
+def test_host_copy_has_the_jax_api(name):
+    """Every public function and class of the JAX module is in the port's
+    copy with the same signature (the port may add its own)."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module(f"isaac_aligner_tpu.{name}")
+    mod = importlib.import_module(f"isaac_aligner_tpu_torch.{name}")
+    for attr, obj in vars(jmod).items():
+        if attr.startswith("__") or not (inspect.isfunction(obj)
+                                         or inspect.isclass(obj)):
+            continue
+        if getattr(obj, "__module__", "").split(".")[0] != "isaac_aligner_tpu":
+            continue
+        mine = getattr(mod, attr, None)
+        assert mine is not None, f"{name}.{attr} missing"
+        if inspect.isfunction(obj):
+            assert inspect.signature(mine) == inspect.signature(obj), attr
+
+
+def test_output_process_modules_import_no_torch():
+    """What the spawned output process imports to resolve barcodes and
+    parse run-folder names pulls in no torch."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import isaac_aligner_tpu_torch.workflow.output_proc\n"
+            "import isaac_aligner_tpu_torch.demultiplexing.resolver\n"
+            "import isaac_aligner_tpu_torch.demultiplexing.samplesheet\n"
+            "import isaac_aligner_tpu_torch.dna\n"
+            "import isaac_aligner_tpu_torch.io.bcl\n"
+            "import isaac_aligner_tpu_torch.build.storage\n"
+            "assert 'torch' not in sys.modules\n"
+            "print('OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
 
 
 def test_import_scan_catches_the_jax_package(tmp_path):

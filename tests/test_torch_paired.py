@@ -600,7 +600,7 @@ bases = np.zeros((3, 10), np.uint8)
 quals = np.full((3, 10), 30, np.uint8)
 lens = np.array([10, 10, 0], np.int32)
 q, rq = queue.Queue(), queue.Queue()
-q.put((0, 2, names.mat, names.lens, (bases, quals, lens),
+q.put((0, 2, names.mat, names.lens, None, (bases, quals, lens),
        (bases, quals, lens), res))
 q.put(None)
 output_proc._child_main(dict(

@@ -1,8 +1,10 @@
 """Port's single-end AlignWorkflow vs the JAX AlignWorkflow, FASTQ to sorted
 BAM on the CPU: sorted.bam, .bai and .md5 byte-equal in every case, equal
-stats counts, resume, batch-size invariance, the CLI, the refusals of what
-is not ported, and the default device.  Contig-group references are in
-`tests/test_torch_groups.py`."""
+stats counts, resume, batch-size invariance, the CLI and its options, the
+output process's child, and the default device.  Contig-group references
+are in `tests/test_torch_groups.py`; run folders, BAM input and
+demultiplexing in `tests/test_torch_bcl.py`, `tests/test_torch_bam_input.py`
+and `tests/test_torch_demux.py`."""
 
 import dataclasses
 import json
@@ -241,16 +243,51 @@ def test_options_match_jax_plus_device():
     assert wf.STATES == jwf.STATES
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"run_folder": "run"}, 8),
-    ({"bam_input": "in.bam"}, 9),
-    ({"sample_sheet": "sheet.csv"}, 10),
-], ids=["run_folder", "bam_input", "sample_sheet"])
-def test_unported_options_raise(inputs, tmp_path, kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}"):
-        wf.AlignWorkflow(_opts(wf, inputs, tmp_path / "out", **kw))
-    assert not (tmp_path / "out").exists()
+class _Parsed(Exception):
+    pass
+
+
+def _align_options(cli_main, monkeypatch) -> dict:
+    """{option strings: (default, choices, nargs, action kind)} of a
+    CLI's `align` subcommand."""
+    import argparse
+
+    def grab(self, args=None, namespace=None):
+        raise _Parsed(self)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(_Parsed) as e:
+        cli_main(["align"])
+    monkeypatch.undo()
+    sub = next(a for a in e.value.args[0]._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {tuple(a.option_strings): (a.default, a.choices, a.nargs,
+                                      type(a).__name__)
+            for a in sub.choices["align"]._actions}
+
+
+def test_align_cli_options_match_jax_plus_device(monkeypatch):
+    from isaac_aligner_tpu.cli import main as jcli
+    from isaac_aligner_tpu_torch.cli import main as cli
+
+    want = _align_options(jcli, monkeypatch)
+    got = _align_options(cli, monkeypatch)
+    assert got.pop(("--device",))[0] == "cuda"
+    assert got == want
+    for opt in (("-b", "--bam"), ("--run-folder",), ("--sample-sheet",),
+                ("--per-tile-tls",), ("--help-md",)):
+        assert opt in got
+
+
+def test_no_input_raises_as_in_jax(inputs, tmp_path):
+    errors = []
+    for mod in (jwf, wf):
+        kw = {"device": "cpu"} if mod is wf else {}
+        with pytest.raises(ValueError) as e:
+            mod.AlignWorkflow(mod.WorkflowOptions(
+                reference=str(inputs / "ref.fa"),
+                output_dir=str(tmp_path / mod.__name__), **kw)).run()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "need --fastq1, --run-folder or --bam input"
 
 
 def test_default_device_is_the_card(inputs, tmp_path):
@@ -269,13 +306,19 @@ def test_default_device_is_the_card(inputs, tmp_path):
 
 def test_output_process_child_needs_no_torch(tmp_path):
     """The spawned child's code path, run in a fresh interpreter on one
-    converted batch, imports no torch."""
+    converted, demultiplexed run-folder batch (barcodes resolved against a
+    sample sheet, RG, BC and ZX/ZY columns), imports no torch."""
+    (tmp_path / "sheet.csv").write_text("barcode,sample\nACGTACGT,s1\n")
     script = f"""
 import queue, sys
 import numpy as np
 from isaac_aligner_tpu_torch.workflow import output_proc
 from isaac_aligner_tpu_torch.io.fastq import LazyNames
-names = LazyNames.from_list(["a", "b", "__pad0"])
+from isaac_aligner_tpu_torch.demultiplexing import parse_sample_sheet
+names = LazyNames.from_list(["SIM:1:FC:1:1101:1010:2020",
+                             "SIM:1:FC:1:1101:1030:2040", "__pad0"])
+barcodes = np.array([[0, 1, 2, 3, 0, 1, 2, 3], [3, 3, 3, 3, 3, 3, 3, 3]],
+                    np.uint8)
 res = {{"aligned": np.array([1, 0, 0], bool),
         "reverse": np.array([1, 0, 0], bool),
         "start": np.array([120, 0, 0], np.int32),
@@ -285,16 +328,22 @@ res = {{"aligned": np.array([1, 0, 0], bool),
 bases = np.zeros((3, 10), np.uint8)
 quals = np.full((3, 10), 30, np.uint8)
 q, rq = queue.Queue(), queue.Queue()
-q.put((0, 2, names.mat, names.lens, (bases, quals,
+q.put((0, 2, names.mat, names.lens, barcodes, (bases, quals,
        np.array([10, 10, 0], np.int32)), None, res))
 q.put(None)
 output_proc._child_main(dict(
     bins_dir={str(tmp_path / 'bins')!r}, contig_offsets=np.array([0, 1000]),
     genome_bp=2000, n_bins=1, sample_cap=8, pre_sort=True, uniform=False,
-    mapq_cap=60, mapq_threshold=0), q, rq)
+    mapq_cap=60, mapq_threshold=0, rg_names=("s1", "unknown"),
+    specs=parse_sample_sheet({str(tmp_path / 'sheet.csv')!r}),
+    spec_to_name=np.array([0], np.int32), unknown=1, want_bc=True,
+    want_zxzy=True, run_folder=True, barcode_mismatches=1), q, rq)
 status, out = rq.get()
 assert status == "ok", out
 assert out["stats"]["total_reads"] == 2 and out["stats"]["aligned"] == 1
+assert out["demux_counts"] == [1, 1], out["demux_counts"]
+assert {{tuple(k.split("|")[:3]) for k in out["per_tile"]}} == \
+    {{("1", "1101", "s1"), ("1", "1101", "unknown")}}, out["per_tile"]
 assert "torch" not in sys.modules
 print("OK")
 """
@@ -302,4 +351,10 @@ print("OK")
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "OK" in proc.stdout
-    assert list((tmp_path / "bins").glob("bin_00000/chunk_*.cols"))
+    chunks = list((tmp_path / "bins").glob("bin_00000/chunk_*.cols"))
+    assert chunks
+    from isaac_aligner_tpu_torch.build.storage import BinnedFragmentStore
+    fb = BinnedFragmentStore.load_bin(chunks[0].parent)
+    assert fb.rg_names == ("s1", "unknown") and fb.rg.tolist() == [0]
+    assert (fb.zx.tolist(), fb.zy.tolist()) == ([1010], [2020])
+    assert bytes(fb.bc[0][:8]) == b"ACGTACGT"
