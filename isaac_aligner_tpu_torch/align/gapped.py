@@ -22,6 +22,7 @@ import torch
 
 from ..index.build import SeedIndex
 from ..ops import sw
+from ..utils import tracing
 from . import quality
 from .pipeline import AlignConfig
 
@@ -228,72 +229,77 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
     queries = []
     dbs = []
     metas = []
-    for r in rows:
-        if res[key][r] is not None:
-            continue  # row already carries a clip cigar (masked tail)
-        start = int(res["start" + s][r])
-        contig = genome.contig_of(start)
-        local = start - contig.offset
-        fl = _flanks(local, read_len, contig.length)
-        if fl is None:
-            continue
-        left, _right = fl
-        win_start = start - left
-        db = g_codes[win_start : win_start + read_len + sw.BAND - 1]
-        if res["reverse" + s][r]:
-            q = bases[r][::-1]
-            q = np.where(q < 4, 3 - q, q)
-        else:
-            q = bases[r]
-        q = q.astype(np.int32)
-        db = db.astype(np.int32)
-        if avoid_sw and not makes_sense_to_gap_align(q, db):
-            continue  # --avoid-smith-waterman: no gap evidence
-        queries.append(q)
-        dbs.append(db)
-        metas.append((int(r), win_start, left))
+    with tracing.span("polish.gapped.windows"):
+        for r in rows:
+            if res[key][r] is not None:
+                continue  # row already carries a clip cigar (masked tail)
+            start = int(res["start" + s][r])
+            contig = genome.contig_of(start)
+            local = start - contig.offset
+            fl = _flanks(local, read_len, contig.length)
+            if fl is None:
+                continue
+            left, _right = fl
+            win_start = start - left
+            db = g_codes[win_start : win_start + read_len + sw.BAND - 1]
+            if res["reverse" + s][r]:
+                q = bases[r][::-1]
+                q = np.where(q < 4, 3 - q, q)
+            else:
+                q = bases[r]
+            q = q.astype(np.int32)
+            db = db.astype(np.int32)
+            if avoid_sw and not makes_sense_to_gap_align(q, db):
+                continue  # --avoid-smith-waterman: no gap evidence
+            queries.append(q)
+            dbs.append(db)
+            metas.append((int(r), win_start, left))
     if not metas:
         return 0
 
     if quals is None:
         quals = np.full_like(bases, 30)
 
-    q_dev = torch.from_numpy(np.stack(queries).astype(np.uint8)).to(device)
-    db_dev = torch.from_numpy(np.stack(dbs).astype(np.uint8)).to(device)
-    gfin, tb = sw.banded_sw(q_dev, db_dev, gs.sw_scores())
-    gfin = gfin.cpu().numpy()
-    tb = tb.cpu().numpy()
-    for k, (r, win_start, _left) in enumerate(metas):
-        exit_d = int(np.argmax(gfin[k]))
-        ops, first_db = sw.traceback(tb[k], exit_d, read_len)
-        cigar = sw.ops_to_cigar(ops)
-        if all(op == "M" for _, op in cigar):
-            continue  # no gap found; keep ungapped
-        new_start = win_start + first_db
-        rq = quals[r][::-1] if res["reverse" + s][r] else quals[r]
-        lp, nmm_g, edit_g, norm_g = rescore_cigar(
-            g_codes, new_start, queries[k], rq, cigar, gs)
-        norm_u = int(res["mismatches" + s][r]) * gs.norm_mismatch
-        # FragmentBuilder acceptance: strictly better normalized score, or
-        # equal score with higher log probability
-        if norm_g < norm_u or (norm_g == norm_u and lp > res["log_prob" + s][r]):
-            res["start" + s][r] = new_start
-            res["mismatches" + s][r] = nmm_g
-            res["edit_distance" + s][r] = edit_g
-            res["log_prob" + s][r] = lp
-            res[key][r] = cigar_to_str(cigar)
-            # re-derive the mapping score with the improved best lp against
-            # the (ungapped) neighborhood mass, exported exp(-log_scale)-scaled
-            if "others_sum" + s in res:
-                rog = quality.rest_of_genome_correction(
-                    genome.total_length, read_len)
-                scale = float(res["log_scale" + s][r]) \
-                    if "log_scale" + s in res else 0.0
-                nb = float(res["others_sum" + s][r]) * np.exp(scale) + rog
-                score = int(np.floor(-10.0 * np.log10(
-                    nb / (nb + np.exp(lp)))))
-                if "mapq" + s in res:
-                    res["mapq" + s][r] = min(score, cfg.mapq_cap)
-                if "frag_score" + s in res:
-                    res["frag_score" + s][r] = score
+    with tracing.span("polish.gapped.kernel"):
+        q_dev = torch.from_numpy(np.stack(queries).astype(np.uint8)).to(device)
+        db_dev = torch.from_numpy(np.stack(dbs).astype(np.uint8)).to(device)
+        gfin, tb = sw.banded_sw(q_dev, db_dev, gs.sw_scores())
+        gfin = gfin.cpu().numpy()
+        tb = tb.cpu().numpy()
+    with tracing.span("polish.gapped.traceback"):
+        for k, (r, win_start, _left) in enumerate(metas):
+            exit_d = int(np.argmax(gfin[k]))
+            ops, first_db = sw.traceback(tb[k], exit_d, read_len)
+            cigar = sw.ops_to_cigar(ops)
+            if all(op == "M" for _, op in cigar):
+                continue  # no gap found; keep ungapped
+            new_start = win_start + first_db
+            rq = quals[r][::-1] if res["reverse" + s][r] else quals[r]
+            lp, nmm_g, edit_g, norm_g = rescore_cigar(
+                g_codes, new_start, queries[k], rq, cigar, gs)
+            norm_u = int(res["mismatches" + s][r]) * gs.norm_mismatch
+            # FragmentBuilder acceptance: strictly better normalized score,
+            # or equal score with higher log probability
+            if norm_g < norm_u or (norm_g == norm_u
+                                   and lp > res["log_prob" + s][r]):
+                res["start" + s][r] = new_start
+                res["mismatches" + s][r] = nmm_g
+                res["edit_distance" + s][r] = edit_g
+                res["log_prob" + s][r] = lp
+                res[key][r] = cigar_to_str(cigar)
+                # re-derive the mapping score with the improved best lp
+                # against the (ungapped) neighborhood mass, exported
+                # exp(-log_scale)-scaled
+                if "others_sum" + s in res:
+                    rog = quality.rest_of_genome_correction(
+                        genome.total_length, read_len)
+                    scale = float(res["log_scale" + s][r]) \
+                        if "log_scale" + s in res else 0.0
+                    nb = float(res["others_sum" + s][r]) * np.exp(scale) + rog
+                    score = int(np.floor(-10.0 * np.log10(
+                        nb / (nb + np.exp(lp)))))
+                    if "mapq" + s in res:
+                        res["mapq" + s][r] = min(score, cfg.mapq_cap)
+                    if "frag_score" + s in res:
+                        res["frag_score" + s][r] = score
     return len(metas)

@@ -26,6 +26,7 @@ import torch
 
 from .. import dna
 from ..ops import bitops
+from ..utils import tracing
 from . import quality
 from .pipeline import (GENOME_PAD, GN_PAD_WORDS, GP_PAD_WORDS, AlignConfig,
                        IndexArrays, _funnel, genome_len_of, scatter_hash)
@@ -250,6 +251,7 @@ def align_paired_batch(arrays: IndexArrays, bases1, quals1, bases2, quals2,
     return out
 
 
+@tracing.spanned("device.score")
 def paired_from_ends(g: int, l1: int, l2: int, cfg: AlignConfig,
                      tls: TlsStatic, end1: dict, end2: dict) -> dict:
     """Pair resolution and scoring from two scored end dicts."""
@@ -409,6 +411,7 @@ def _span_planes(arrays: IndexArrays, cfg: AlignConfig, win_start,
     return span.gather(1, rp), span_n.gather(1, rp) | (k + d < 0)
 
 
+@tracing.spanned("device.rescue")
 def rescue_shadows(arrays: IndexArrays, cfg: AlignConfig, tls: TlsStatic,
                    orphan_read_index: int, read_lengths: tuple[int, int],
                    orphan_start, orphan_rev, shadow_bases, shadow_quals,

@@ -35,6 +35,7 @@ from .. import dna
 from ..device import require_device
 from ..index.build import TOO_MANY_POS, SeedIndex, unbias_i32_to_u32
 from ..ops import bitops, search
+from ..utils import tracing
 from . import quality
 from .clippers import CONSECUTIVE_MATCHES_MIN, MASK_READ_LENGTH_MIN
 
@@ -757,6 +758,7 @@ def _find_hits_two_pass(arrays: IndexArrays, cfg: AlignConfig, bases,
     return start_f, orient_f, valid_f, clean_f, diag1
 
 
+@tracing.spanned("device.seed")
 def _gather_candidates(arrays: IndexArrays, cfg: AlignConfig, bases,
                        find_fn=find_seed_hits):
     """Stages A+B: seed hits (from `find_fn`) -> deduped candidate grid
@@ -858,6 +860,7 @@ def _score_ungapped(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
             scatter(p_edit, 0), dropped_row)
 
 
+@tracing.spanned("device.score")
 def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
                         cand_start, cand_orient, cand_valid, diag,
                         well_anchored=None, score_fn=None):
@@ -934,6 +937,7 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
     }
 
 
+@tracing.spanned("device.score")
 def score_candidates(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
                      cand_start, cand_orient, cand_valid, well_anchored,
                      num_candidates, scored_overflow,
@@ -985,6 +989,7 @@ def score_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
         finder_stats=_finder_stats_from_diag(diag), score_fn=score_fn)
 
 
+@tracing.spanned("device.clip")
 def quality_trim_device(bases, quals, cutoff: int, tail_masked):
     """3' quality trim (reference trimLowQualityEnd, Quality.cpp:72-120):
     walk leftward from the unmasked 3' end accumulating (cutoff - q), stop
@@ -1016,6 +1021,7 @@ def quality_trim_device(bases, quals, cutoff: int, tail_masked):
             trims.to(torch.int32))
 
 
+@tracing.spanned("device.clip")
 def semialigned_clip_device(arrays: IndexArrays, cfg: AlignConfig, bases,
                             start, rev, aligned, trims):
     """Semialigned-ends clip of the chosen ungapped placement (reference
@@ -1109,6 +1115,7 @@ def align_batch(arrays: IndexArrays, bases: torch.Tensor, quals: torch.Tensor,
     return res
 
 
+@tracing.spanned("device.clip")
 def mask_tail_device(bases, quals, tail_masked):
     """Mask the last `tail_masked` columns of each row (N / qual 0)."""
     l = bases.shape[1]

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import time
 
 import numpy as np
 import torch
@@ -80,6 +79,22 @@ def _upload(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _fetch(out: dict, device) -> dict[str, np.ndarray]:
+    """The device results on the host, one .cpu() per field, as the span
+    `fetch`: `fetch.wait` waits for the work queued on the device's
+    current stream (CUDA only; the copies would wait for it all the
+    same), `fetch.copy` is the copies.  Stream order makes one wait cover
+    everything queued before it: in the resident grouped path
+    (`parallel/multi_index.py`) group 0's wait also covers the later
+    groups' queued work."""
+    with tracing.span("fetch"):
+        with tracing.span("fetch.wait"):
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+        with tracing.span("fetch.copy"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def _check_read_len(read_len: int | None, device) -> None:
     """The CUDA SW kernel's length limit shows at create, not at the first
     gapped polish."""
@@ -127,25 +142,22 @@ class Aligner:
     semialigned_gap_limit: int = 100
     # accumulated MatchFinder-style seed stats
     finder_stats: dict = dataclasses.field(default_factory=dict)
-    # per-stage wall seconds (dispatch / fetch / polish / records)
+    # wall seconds per stage span (utils/tracing.span): upload, dispatch,
+    # fetch, polish, stats, records and their dotted children
     timings: dict = dataclasses.field(default_factory=dict)
     # (query, window) pairs sent to the banded SW kernel
     sw_pairs: int = 0
-
-    def _t(self, key: str, dt: float) -> None:
-        self.timings[key] = self.timings.get(key, 0.0) + dt
 
     def ensure_uploaded(self) -> None:
         """Upload the index planes to the device if they are not there;
         the seconds it takes (to the end of the copies) add to
         timings["upload"]."""
         if self.arrays is None:
-            t0 = time.perf_counter()
-            self.arrays = prepare_index(self.index, self.device,
-                                        upload_codes=False)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._t("upload", time.perf_counter() - t0)
+            with tracing.collect(self.timings), tracing.span("upload"):
+                self.arrays = prepare_index(self.index, self.device,
+                                            upload_codes=False)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
 
     def release_device(self) -> None:
         """Drop the device planes and return their memory to the card, so
@@ -180,49 +192,57 @@ class Aligner:
 
     def _dispatch(self, batch: ReadBatch):
         """Adapter-mask on host, enqueue the device pipeline."""
-        t0 = time.perf_counter()
-        bases = batch.bases.copy()
-        quals = batch.quals.copy()
-        trims = clippers.adapter_trim_batch(bases, quals, list(self.adapters))
-        bases, quals = _pad_to_seed(bases, quals, self.cfg.seed_len)
-        # the device gets the original bases and re-applies the adapter
-        # mask from the counts; the masked host copies feed the polish
-        ob, oq = _pad_to_seed(batch.bases, batch.quals, self.cfg.seed_len)
+        with tracing.collect(self.timings), tracing.span("dispatch"):
+            bases = batch.bases.copy()
+            quals = batch.quals.copy()
+            trims = clippers.adapter_trim_batch(bases, quals,
+                                                list(self.adapters))
+            bases, quals = _pad_to_seed(bases, quals, self.cfg.seed_len)
+            # the device gets the original bases and re-applies the adapter
+            # mask from the counts; the masked host copies feed the polish
+            ob, oq = _pad_to_seed(batch.bases, batch.quals, self.cfg.seed_len)
 
-        tail = _upload(trims.astype(np.int32), self.device)
-        mb, mq = mask_tail_device(_upload(ob, self.device),
-                                  _upload(oq, self.device), tail)
-        out = align_batch(self.arrays, mb, mq, self.cfg, tail)
-        self._t("dispatch", time.perf_counter() - t0)
-        return out, bases, quals, trims, batch
+            tail = _upload(trims.astype(np.int32), self.device)
+            mb, mq = mask_tail_device(_upload(ob, self.device),
+                                      _upload(oq, self.device), tail)
+            out = align_batch(self.arrays, mb, mq, self.cfg, tail)
+            return out, bases, quals, trims, batch
 
     def _finish(self, pending) -> dict[str, np.ndarray]:
         """Fetch device results (one .cpu() per field), run host polish."""
         out, bases, quals, trims, batch = pending
-        t0 = time.perf_counter()
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        t1 = time.perf_counter()
-        self._t("fetch", t1 - t0)
-        total_trims = clippers.apply_quality_trim_masks(
-            bases, quals, trims, res.pop("qtrim"))
-        clippers.apply_masked_tail_cigar(res, "", total_trims, batch.read_len)
-        clippers.clip_contig_ends(res, "", self.index.genome, batch.read_len)
-        self.sw_pairs += polish_gapped(
-            self.index, self.cfg, res, bases, self.device, quals=quals,
-            gs=self.gap_scoring, trigger=self.gapped_mismatches,
-            avoid_sw=self.avoid_smith_waterman)
-        polish_simple_indels(self.index, self.cfg, res, bases, quals=quals,
-                             gs=self.gap_scoring,
-                             trigger=max(6, self.gapped_mismatches + 1),
-                             max_gap=self.semialigned_gap_limit)
-        if self.clip_semialigned:
-            clippers.apply_semialigned_device(res, "", bases.shape[1])
-        self._t("polish", time.perf_counter() - t1)
+        with tracing.collect(self.timings):
+            res = _fetch(out, self.device)
+            with tracing.span("polish"):
+                with tracing.span("polish.clip"):
+                    total_trims = clippers.apply_quality_trim_masks(
+                        bases, quals, trims, res.pop("qtrim"))
+                    clippers.apply_masked_tail_cigar(res, "", total_trims,
+                                                     batch.read_len)
+                    clippers.clip_contig_ends(res, "", self.index.genome,
+                                              batch.read_len)
+                with tracing.span("polish.gapped"):
+                    self.sw_pairs += polish_gapped(
+                        self.index, self.cfg, res, bases, self.device,
+                        quals=quals, gs=self.gap_scoring,
+                        trigger=self.gapped_mismatches,
+                        avoid_sw=self.avoid_smith_waterman)
+                with tracing.span("polish.indel"):
+                    polish_simple_indels(
+                        self.index, self.cfg, res, bases, quals=quals,
+                        gs=self.gap_scoring,
+                        trigger=max(6, self.gapped_mismatches + 1),
+                        max_gap=self.semialigned_gap_limit)
+                if self.clip_semialigned:
+                    with tracing.span("polish.clip"):
+                        clippers.apply_semialigned_device(res, "",
+                                                          bases.shape[1])
         return res
 
     def _record_stats(self, batch: ReadBatch, res: dict) -> None:
-        _accumulate_finder_stats(self.finder_stats, res)
-        tracing.trace_batch(batch.names, res)
+        with tracing.collect(self.timings), tracing.span("stats"):
+            _accumulate_finder_stats(self.finder_stats, res)
+            tracing.trace_batch(batch.names, res)
 
     def align_batch_arrays(self, batch: ReadBatch) -> dict[str, np.ndarray]:
         """Run the device pipeline; returns host numpy result arrays."""
@@ -247,46 +267,47 @@ class Aligner:
 
     def _records_from_res(self, batch: ReadBatch, res: dict,
                           phred_offset: int = 33) -> list[sam.SamRecord]:
-        t0 = time.perf_counter()
         genome = self.index.genome
         records: list[sam.SamRecord] = []
-        for i, name in enumerate(batch.names):
-            if name.startswith("__pad"):
-                continue
-            length = int(batch.lengths[i])
-            bases = batch.bases[i, :length]
-            quals = batch.quals[i, :length]
-            aligned = bool(res["aligned"][i])
-            reverse = bool(res["reverse"][i])
-            if aligned and reverse:
-                seq = dna.decode(dna.revcomp(bases))
-                qual = "".join(chr(int(q) + phred_offset) for q in quals[::-1])
-            else:
-                seq = dna.decode(bases)
-                qual = "".join(chr(int(q) + phred_offset) for q in quals)
-            if aligned:
-                contig, local = genome.to_local(int(res["start"][i]))
-                cigars = res.get("cigar")
-                cigar = (cigars[i] if cigars and cigars[i] else f"{length}M")
-                rec = sam.SamRecord(
-                    qname=name,
-                    flag=sam.FLAG_REVERSE if reverse else 0,
-                    rname=contig,
-                    pos=local + 1,
-                    mapq=int(res["mapq"][i]),
-                    cigar=cigar,
-                    seq=seq,
-                    qual=qual,
-                )
-                rec.set_tag("NM", "i", int(res["edit_distance"][i]))
-                rec.set_tag("SM", "i", int(res["mapq"][i]))
-            else:
-                rec = sam.SamRecord(
-                    qname=name, flag=sam.FLAG_UNMAPPED, rname="*", pos=0,
-                    mapq=0, cigar="*", seq=seq, qual=qual,
-                )
-            records.append(rec)
-        self._t("records", time.perf_counter() - t0)
+        with tracing.collect(self.timings), tracing.span("records"):
+            for i, name in enumerate(batch.names):
+                if name.startswith("__pad"):
+                    continue
+                length = int(batch.lengths[i])
+                bases = batch.bases[i, :length]
+                quals = batch.quals[i, :length]
+                aligned = bool(res["aligned"][i])
+                reverse = bool(res["reverse"][i])
+                if aligned and reverse:
+                    seq = dna.decode(dna.revcomp(bases))
+                    qual = "".join(chr(int(q) + phred_offset)
+                                   for q in quals[::-1])
+                else:
+                    seq = dna.decode(bases)
+                    qual = "".join(chr(int(q) + phred_offset) for q in quals)
+                if aligned:
+                    contig, local = genome.to_local(int(res["start"][i]))
+                    cigars = res.get("cigar")
+                    cigar = (cigars[i] if cigars and cigars[i]
+                             else f"{length}M")
+                    rec = sam.SamRecord(
+                        qname=name,
+                        flag=sam.FLAG_REVERSE if reverse else 0,
+                        rname=contig,
+                        pos=local + 1,
+                        mapq=int(res["mapq"][i]),
+                        cigar=cigar,
+                        seq=seq,
+                        qual=qual,
+                    )
+                    rec.set_tag("NM", "i", int(res["edit_distance"][i]))
+                    rec.set_tag("SM", "i", int(res["mapq"][i]))
+                else:
+                    rec = sam.SamRecord(
+                        qname=name, flag=sam.FLAG_UNMAPPED, rname="*", pos=0,
+                        mapq=0, cigar="*", seq=seq, qual=qual,
+                    )
+                records.append(rec)
         return records
 
 
@@ -332,8 +353,8 @@ class PairedAligner:
     # reference --bam-pessimistic-mapq (manual.md:279)
     pessimistic_mapq: bool = False
     finder_stats: dict = dataclasses.field(default_factory=dict)
-    # per-stage wall seconds (dispatch / fetch / polish, rescue inside
-    # polish / records)
+    # wall seconds per stage span, as Aligner's (polish.rescue inside
+    # polish)
     timings: dict = dataclasses.field(default_factory=dict)
     # (query, window) pairs sent to the banded SW kernel
     sw_pairs: int = 0
@@ -341,7 +362,6 @@ class PairedAligner:
     rescue_rows: int = 0
     rescue_calls: int = 0
 
-    _t = Aligner._t
     ensure_uploaded = Aligner.ensure_uploaded
     release_device = Aligner.release_device
 
@@ -407,94 +427,106 @@ class PairedAligner:
     def _dispatch(self, b1: ReadBatch, b2: ReadBatch):
         """Adapter-mask both ends on the host, enqueue the device pipeline
         (quality trim and semialigned clip run on the device)."""
-        t0 = time.perf_counter()
-        masked, orig, trims = [], [], []
-        for b in (b1, b2):
-            bases = b.bases.copy()
-            quals = b.quals.copy()
-            t = clippers.adapter_trim_batch(bases, quals, list(self.adapters))
-            bases, quals = _pad_to_seed(bases, quals, self.cfg.seed_len)
-            masked.append(ReadBatch(b.names, bases, quals, b.lengths))
-            ob, oq = _pad_to_seed(b.bases, b.quals, self.cfg.seed_len)
-            tail = _upload(t.astype(np.int32), self.device)
-            orig.append((*mask_tail_device(_upload(ob, self.device),
-                                           _upload(oq, self.device), tail),
-                         tail))
-            trims.append(t)
-        # the device gets the original bases and re-applies the adapter
-        # mask from the counts; the masked host copies feed polish + rescue
-        (mb1, mq1, tm1), (mb2, mq2, tm2) = orig
-        out = align_paired_batch(self.arrays, mb1, mq1, mb2, mq2, self.cfg,
-                                 self._batch_tls(b1), tm1, tm2)
-        self._t("dispatch", time.perf_counter() - t0)
-        return out, masked[0], masked[1], trims, (b1, b2)
+        with tracing.collect(self.timings), tracing.span("dispatch"):
+            masked, orig, trims = [], [], []
+            for b in (b1, b2):
+                bases = b.bases.copy()
+                quals = b.quals.copy()
+                t = clippers.adapter_trim_batch(bases, quals,
+                                                list(self.adapters))
+                bases, quals = _pad_to_seed(bases, quals, self.cfg.seed_len)
+                masked.append(ReadBatch(b.names, bases, quals, b.lengths))
+                ob, oq = _pad_to_seed(b.bases, b.quals, self.cfg.seed_len)
+                tail = _upload(t.astype(np.int32), self.device)
+                orig.append((*mask_tail_device(_upload(ob, self.device),
+                                               _upload(oq, self.device),
+                                               tail), tail))
+                trims.append(t)
+            # the device gets the original bases and re-applies the adapter
+            # mask from the counts; the masked host copies feed polish +
+            # rescue
+            (mb1, mq1, tm1), (mb2, mq2, tm2) = orig
+            out = align_paired_batch(self.arrays, mb1, mq1, mb2, mq2,
+                                     self.cfg, self._batch_tls(b1), tm1, tm2)
+            return out, masked[0], masked[1], trims, (b1, b2)
 
     def _finish(self, pending) -> dict[str, np.ndarray]:
         """Fetch device results (one .cpu() per field), run the host
         passes: rescue, clips and both ends' polish."""
         out, m1, m2, trims, (b1, b2) = pending
-        t0 = time.perf_counter()
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        t1 = time.perf_counter()
-        self._t("fetch", t1 - t0)
-        total1 = clippers.apply_quality_trim_masks(
-            m1.bases, m1.quals, trims[0], res.pop("qtrim_1"))
-        total2 = clippers.apply_quality_trim_masks(
-            m2.bases, m2.quals, trims[1], res.pop("qtrim_2"))
-        rescued1, rescued2 = self._apply_rescue(res, m1, m2)
-        clippers.apply_masked_tail_cigar(res, "_1", total1, b1.read_len)
-        clippers.apply_masked_tail_cigar(res, "_2", total2, b2.read_len)
-        clippers.clip_contig_ends(res, "_1", self.index.genome, b1.read_len)
-        clippers.clip_contig_ends(res, "_2", self.index.genome, b2.read_len)
+        with tracing.collect(self.timings):
+            res = _fetch(out, self.device)
+            with tracing.span("polish"):
+                self._polish(res, m1, m2, trims, b1, b2)
+        return res
+
+    def _polish(self, res, m1, m2, trims, b1, b2) -> None:
+        """The host passes of `_finish`, each a child span of `polish`."""
+        with tracing.span("polish.clip"):
+            total1 = clippers.apply_quality_trim_masks(
+                m1.bases, m1.quals, trims[0], res.pop("qtrim_1"))
+            total2 = clippers.apply_quality_trim_masks(
+                m2.bases, m2.quals, trims[1], res.pop("qtrim_2"))
+        with tracing.span("polish.rescue"):
+            rescued1, rescued2 = self._apply_rescue(res, m1, m2)
+        with tracing.span("polish.clip"):
+            clippers.apply_masked_tail_cigar(res, "_1", total1, b1.read_len)
+            clippers.apply_masked_tail_cigar(res, "_2", total2, b2.read_len)
+            clippers.clip_contig_ends(res, "_1", self.index.genome,
+                                      b1.read_len)
+            clippers.clip_contig_ends(res, "_2", self.index.genome,
+                                      b2.read_len)
         gs = self.gap_scoring
         trig = self.gapped_mismatches
         for sfx, m in (("_1", m1), ("_2", m2)):
-            self.sw_pairs += polish_gapped(
-                self.index, self.cfg, res, m.bases, self.device, sfx,
-                quals=m.quals, gs=gs, trigger=trig,
-                avoid_sw=self.avoid_smith_waterman)
+            with tracing.span("polish.gapped"):
+                self.sw_pairs += polish_gapped(
+                    self.index, self.cfg, res, m.bases, self.device, sfx,
+                    quals=m.quals, gs=gs, trigger=trig,
+                    avoid_sw=self.avoid_smith_waterman)
         for sfx, m in (("_1", m1), ("_2", m2)):
-            polish_simple_indels(self.index, self.cfg, res, m.bases, sfx,
-                                 quals=m.quals, gs=gs,
-                                 trigger=max(6, trig + 1),
-                                 max_gap=self.semialigned_gap_limit)
+            with tracing.span("polish.indel"):
+                polish_simple_indels(self.index, self.cfg, res, m.bases, sfx,
+                                     quals=m.quals, gs=gs,
+                                     trigger=max(6, trig + 1),
+                                     max_gap=self.semialigned_gap_limit)
         g_codes = self.index.genome.codes
-        if self.clip_semialigned:
-            # the device clip covers rows aligned on the device; rescued
-            # shadows get the host pass
-            clippers.apply_semialigned_device(res, "_1", b1.read_len)
-            clippers.apply_semialigned_device(res, "_2", b2.read_len)
-            if rescued1.any():
-                clippers.clip_semialigned(res, "_1", g_codes, m1.bases,
-                                          row_mask=rescued1)
-            if rescued2.any():
-                clippers.clip_semialigned(res, "_2", g_codes, m2.bases,
-                                          row_mask=rescued2)
-        if self.clip_overlapping:
-            clippers.clip_overlapping(res, m1, m2, g_codes)
-        self._t("polish", time.perf_counter() - t1)
-        return res
+        with tracing.span("polish.clip"):
+            if self.clip_semialigned:
+                # the device clip covers rows aligned on the device; rescued
+                # shadows get the host pass
+                clippers.apply_semialigned_device(res, "_1", b1.read_len)
+                clippers.apply_semialigned_device(res, "_2", b2.read_len)
+                if rescued1.any():
+                    clippers.clip_semialigned(res, "_1", g_codes, m1.bases,
+                                              row_mask=rescued1)
+                if rescued2.any():
+                    clippers.clip_semialigned(res, "_2", g_codes, m2.bases,
+                                              row_mask=rescued2)
+            if self.clip_overlapping:
+                clippers.clip_overlapping(res, m1, m2, g_codes)
 
     def _record_stats(self, b1: ReadBatch, b2: ReadBatch, res: dict) -> None:
-        _accumulate_finder_stats(self.finder_stats, res)
-        # anomalous pairs (reference MatchSelectorStats): both ends aligned
-        # but no proper pair even after disjoined rescue
-        both = res["aligned_1"] & res["aligned_2"]
-        self.finder_stats["anomalous_pairs"] = \
-            self.finder_stats.get("anomalous_pairs", 0) \
-            + int((both & ~res["proper_pair"]).sum())
-        n_skip = int(res.get("rescue_skipped_count", 0))
-        if n_skip:
-            if not self.finder_stats.get("rescue_skipped"):
-                tracing.log(
-                    f"shadow rescue DISABLED: TLS window "
-                    f"{self._rescue_window()} exceeds max_rescue_window "
-                    f"{self.max_rescue_window}; orphaned mates stay "
-                    f"unaligned", force=True)
-            self.finder_stats["rescue_skipped"] = \
-                self.finder_stats.get("rescue_skipped", 0) + n_skip
-        tracing.trace_batch(b1.names, res, "_1")
-        tracing.trace_batch(b2.names, res, "_2")
+        with tracing.collect(self.timings), tracing.span("stats"):
+            _accumulate_finder_stats(self.finder_stats, res)
+            # anomalous pairs (reference MatchSelectorStats): both ends
+            # aligned but no proper pair even after disjoined rescue
+            both = res["aligned_1"] & res["aligned_2"]
+            self.finder_stats["anomalous_pairs"] = \
+                self.finder_stats.get("anomalous_pairs", 0) \
+                + int((both & ~res["proper_pair"]).sum())
+            n_skip = int(res.get("rescue_skipped_count", 0))
+            if n_skip:
+                if not self.finder_stats.get("rescue_skipped"):
+                    tracing.log(
+                        f"shadow rescue DISABLED: TLS window "
+                        f"{self._rescue_window()} exceeds max_rescue_window "
+                        f"{self.max_rescue_window}; orphaned mates stay "
+                        f"unaligned", force=True)
+                self.finder_stats["rescue_skipped"] = \
+                    self.finder_stats.get("rescue_skipped", 0) + n_skip
+            tracing.trace_batch(b1.names, res, "_1")
+            tracing.trace_batch(b2.names, res, "_2")
 
     def align_batch_arrays(self, b1: ReadBatch,
                            b2: ReadBatch) -> dict[str, np.ndarray]:
@@ -675,17 +707,16 @@ class PairedAligner:
 
     def _records_from_res(self, b1: ReadBatch, b2: ReadBatch, res: dict,
                           phred_offset: int = 33) -> list[sam.SamRecord]:
-        t0 = time.perf_counter()
         genome = self.index.genome
         records: list[sam.SamRecord] = []
-        for i in range(b1.count):
-            name = b1.names[i]
-            if name.startswith("__pad"):
-                continue
-            records.extend(_pair_records(genome, res, i, name, b1, b2,
-                                         phred_offset, self.cfg.mapq_cap,
-                                         pessimistic=self.pessimistic_mapq))
-        self._t("records", time.perf_counter() - t0)
+        with tracing.collect(self.timings), tracing.span("records"):
+            for i in range(b1.count):
+                name = b1.names[i]
+                if name.startswith("__pad"):
+                    continue
+                records.extend(_pair_records(
+                    genome, res, i, name, b1, b2, phred_offset,
+                    self.cfg.mapq_cap, pessimistic=self.pessimistic_mapq))
         return records
 
 

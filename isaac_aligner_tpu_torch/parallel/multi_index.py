@@ -45,6 +45,7 @@ from ..aligner import Aligner, PairedAligner
 from ..index.build import SeedIndex
 from ..io import sam
 from ..io.fastq import ReadBatch
+from ..utils import tracing
 
 
 def _check_disjoint(indexes: list[SeedIndex]) -> None:
@@ -144,6 +145,13 @@ class _GroupsMixin:
     and timings, and the combined coordinate space."""
 
     @property
+    def own_timings(self) -> dict:
+        """Wall seconds of the driver's own stage spans (`merge`)."""
+        if getattr(self, "_own_timings", None) is None:
+            self._own_timings = {}
+        return self._own_timings
+
+    @property
     def cfg(self):
         return self.aligners[0].cfg
 
@@ -159,7 +167,7 @@ class _GroupsMixin:
 
     @property
     def timings(self) -> dict:
-        out: dict = {}
+        out = dict(self.own_timings)
         for a in self.aligners:
             for k, v in a.timings.items():
                 out[k] = out.get(k, 0.0) + v
@@ -219,51 +227,54 @@ class MultiIndexAligner(_GroupsMixin):
                            self._finish_all(batch, self._dispatch_all(batch)))
 
     def _merge(self, batch: ReadBatch, results: list[dict]) -> dict:
-        n = batch.bases.shape[0]
-        goff = np.cumsum([0] + [a.index.genome.total_length
-                                for a in self.aligners[:-1]])
+        with tracing.collect(self.own_timings), tracing.span("merge"):
+            n = batch.bases.shape[0]
+            goff = np.cumsum([0] + [a.index.genome.total_length
+                                    for a in self.aligners[:-1]])
 
-        lp = np.stack([np.where(r["aligned"], r["log_prob"], -np.inf)
-                       for r in results])                  # [G, B]
-        # others_sum is exported exp(-log_scale)-scaled; recover the raw
-        # mass in f64 (host math never underflows)
-        others = np.stack([
-            r["others_sum"].astype(np.float64)
-            * np.exp(r.get("log_scale", np.zeros(n)).astype(np.float64))
-            for r in results])
-        best_g = np.argmax(lp, axis=0)
-        any_aligned = np.isfinite(lp).any(axis=0)
-        ar = np.arange(n)
-        best_lp = lp[best_g, ar].astype(np.float64)
-        exp_lp = np.where(np.isfinite(lp), np.exp(lp.astype(np.float64)), 0.0)
-        others_total = others.sum(axis=0) + exp_lp.sum(axis=0) \
-            - np.where(any_aligned, np.exp(best_lp), 0.0)
+            lp = np.stack([np.where(r["aligned"], r["log_prob"], -np.inf)
+                           for r in results])                  # [G, B]
+            # others_sum is exported exp(-log_scale)-scaled; recover the raw
+            # mass in f64 (host math never underflows)
+            others = np.stack([
+                r["others_sum"].astype(np.float64)
+                * np.exp(r.get("log_scale", np.zeros(n)).astype(np.float64))
+                for r in results])
+            best_g = np.argmax(lp, axis=0)
+            any_aligned = np.isfinite(lp).any(axis=0)
+            ar = np.arange(n)
+            best_lp = lp[best_g, ar].astype(np.float64)
+            exp_lp = np.where(np.isfinite(lp), np.exp(lp.astype(np.float64)),
+                              0.0)
+            others_total = others.sum(axis=0) + exp_lp.sum(axis=0) \
+                - np.where(any_aligned, np.exp(best_lp), 0.0)
 
-        rog = quality.rest_of_genome_correction(self.total_genome_length,
-                                                batch.read_len)
-        safe_lp = np.where(any_aligned, best_lp, 0.0)
-        mapq_f = quality.mapping_quality_f64(safe_lp, others_total, rog)
-        cap = self.cfg.mapq_cap
-        merged_mapq = np.clip(np.floor(mapq_f), 0, cap).astype(np.int32)
+            rog = quality.rest_of_genome_correction(self.total_genome_length,
+                                                    batch.read_len)
+            safe_lp = np.where(any_aligned, best_lp, 0.0)
+            mapq_f = quality.mapping_quality_f64(safe_lp, others_total, rog)
+            cap = self.cfg.mapq_cap
+            merged_mapq = np.clip(np.floor(mapq_f), 0, cap).astype(np.int32)
 
-        out = {k: _pick_rows(results, k, best_g)
-               for k in ("reverse", "mismatches", "edit_distance", "cigar")}
-        # device-oriented output columns (orientation of the winning group
-        # matches its own orient_rev, so the converter's fix-up is a no-op
-        # unless downstream passes flip a row)
-        for k in ("seq_out", "qual_out", "orient_rev"):
-            v = _pick_rows(results, k, best_g)
-            if v is not None:
-                out[k] = v
-        out["aligned"] = any_aligned
-        out["start"] = _pick_rows(results, "start", best_g) + goff[best_g]
-        out["log_prob"] = best_lp
-        out["others_sum"] = others_total
-        # in-group gate (well-anchored / dodgy zeroing) wins over the
-        # merged score
-        in_group_mapq = _pick_rows(results, "mapq", best_g)
-        out["mapq"] = np.where(in_group_mapq == 0, 0, merged_mapq)
-        return out
+            out = {k: _pick_rows(results, k, best_g)
+                   for k in ("reverse", "mismatches", "edit_distance",
+                             "cigar")}
+            # device-oriented output columns (orientation of the winning group
+            # matches its own orient_rev, so the converter's fix-up is a no-op
+            # unless downstream passes flip a row)
+            for k in ("seq_out", "qual_out", "orient_rev"):
+                v = _pick_rows(results, k, best_g)
+                if v is not None:
+                    out[k] = v
+            out["aligned"] = any_aligned
+            out["start"] = _pick_rows(results, "start", best_g) + goff[best_g]
+            out["log_prob"] = best_lp
+            out["others_sum"] = others_total
+            # in-group gate (well-anchored / dodgy zeroing) wins over the
+            # merged score
+            in_group_mapq = _pick_rows(results, "mapq", best_g)
+            out["mapq"] = np.where(in_group_mapq == 0, 0, merged_mapq)
+            return out
 
     def align_results_many(self, batches):
         """(batch, merged result) pairs in batch order."""
@@ -373,96 +384,99 @@ class MultiIndexPairedAligner(_GroupsMixin):
             b1, b2, self._finish_all(b1, b2, self._dispatch_all(b1, b2)))
 
     def _merge(self, b1: ReadBatch, b2: ReadBatch, results: list[dict]) -> dict:
-        n = b1.bases.shape[0]
-        ar = np.arange(n)
-        goff = np.cumsum([0] + [a.index.genome.total_length
-                                for a in self.aligners[:-1]])
-        neg_inf = -np.inf
+        with tracing.collect(self.own_timings), tracing.span("merge"):
+            n = b1.bases.shape[0]
+            ar = np.arange(n)
+            goff = np.cumsum([0] + [a.index.genome.total_length
+                                    for a in self.aligners[:-1]])
+            neg_inf = -np.inf
 
-        def joint_lp(r):
-            a1, a2 = r["aligned_1"], r["aligned_2"]
-            lp1 = np.where(a1, r["log_prob_1"], 0.0)
-            lp2 = np.where(a2, r["log_prob_2"], 0.0)
-            return np.where(a1 | a2, lp1 + lp2, neg_inf)
+            def joint_lp(r):
+                a1, a2 = r["aligned_1"], r["aligned_2"]
+                lp1 = np.where(a1, r["log_prob_1"], 0.0)
+                lp2 = np.where(a2, r["log_prob_2"], 0.0)
+                return np.where(a1 | a2, lp1 + lp2, neg_inf)
 
-        jl = np.stack([joint_lp(r) for r in results])          # [G, B]
-        best_g = np.argmax(jl, axis=0)
+            jl = np.stack([joint_lp(r) for r in results])          # [G, B]
+            best_g = np.argmax(jl, axis=0)
 
-        g_total = self.total_genome_length
-        read_lens = (b1.read_len, b2.read_len)
-        rog_t = quality.rest_of_genome_correction(g_total, sum(read_lens))
-        cap = self.cfg.mapq_cap
+            g_total = self.total_genome_length
+            read_lens = (b1.read_len, b2.read_len)
+            rog_t = quality.rest_of_genome_correction(g_total, sum(read_lens))
+            cap = self.cfg.mapq_cap
 
-        out = {}
-        keys = ["proper_pair", "pair_resolved", "template_length",
-                "pair_best_lp"]
-        for e in (1, 2):
-            keys += [f"aligned_{e}", f"reverse_{e}", f"mismatches_{e}",
-                     f"edit_distance_{e}", f"cigar_{e}", f"log_prob_{e}",
-                     f"shadow_{e}", f"seq_out_{e}", f"qual_out_{e}",
-                     f"orient_rev_{e}"]
-        for k in keys:
-            v = _pick_rows(results, k, best_g)
-            if v is not None:
-                out[k] = v
-        for e in (1, 2):
-            out[f"start_{e}"] = _pick_rows(results, f"start_{e}", best_g) \
-                + np.where(out[f"aligned_{e}"], goff[best_g], 0)
+            out = {}
+            keys = ["proper_pair", "pair_resolved", "template_length",
+                    "pair_best_lp"]
+            for e in (1, 2):
+                keys += [f"aligned_{e}", f"reverse_{e}", f"mismatches_{e}",
+                         f"edit_distance_{e}", f"cigar_{e}", f"log_prob_{e}",
+                         f"shadow_{e}", f"seq_out_{e}", f"qual_out_{e}",
+                         f"orient_rev_{e}"]
+            for k in keys:
+                v = _pick_rows(results, k, best_g)
+                if v is not None:
+                    out[k] = v
+            for e in (1, 2):
+                out[f"start_{e}"] = _pick_rows(results, f"start_{e}", best_g) \
+                    + np.where(out[f"aligned_{e}"], goff[best_g], 0)
 
-        # merged template score over the summed cross-group pair mass
-        # (exported exp(-pair_log_scale)-scaled; recover raw in f64)
-        pair_total = np.stack([
-            r["pair_total_prob"].astype(np.float64)
-            * np.exp(r["pair_log_scale"].astype(np.float64))
-            for r in results]).sum(0)
-        resolved = out["pair_resolved"].astype(bool)
-        p_best = np.exp(out["pair_best_lp"].astype(np.float64))
-        others = np.maximum(pair_total - p_best, 0.0) + rog_t
-        denom = pair_total + rog_t
-        with np.errstate(divide="ignore", invalid="ignore"):
-            ts = np.floor(-10.0 * np.log10(
-                np.where(resolved, others / np.maximum(denom, 1e-300), 1.0)))
-        in_group_ts = _pick_rows(results, "template_score", best_g)
-        out["template_score"] = np.where(
-            resolved & (in_group_ts >= 0),
-            np.clip(ts, -1, cap).astype(np.int64), in_group_ts)
-        out["pair_total_prob"] = pair_total
+            # merged template score over the summed cross-group pair mass
+            # (exported exp(-pair_log_scale)-scaled; recover raw in f64)
+            pair_total = np.stack([
+                r["pair_total_prob"].astype(np.float64)
+                * np.exp(r["pair_log_scale"].astype(np.float64))
+                for r in results]).sum(0)
+            resolved = out["pair_resolved"].astype(bool)
+            p_best = np.exp(out["pair_best_lp"].astype(np.float64))
+            others = np.maximum(pair_total - p_best, 0.0) + rog_t
+            denom = pair_total + rog_t
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ts = np.floor(-10.0 * np.log10(
+                    np.where(resolved, others / np.maximum(denom, 1e-300),
+                             1.0)))
+            in_group_ts = _pick_rows(results, "template_score", best_g)
+            out["template_score"] = np.where(
+                resolved & (in_group_ts >= 0),
+                np.clip(ts, -1, cap).astype(np.int64), in_group_ts)
+            out["pair_total_prob"] = pair_total
 
-        # merged per-end mapping scores over the summed end neighborhoods
-        rogs = [quality.rest_of_genome_correction(g_total, l)
-                for l in read_lens]
-        for e_idx, e in enumerate((1, 2)):
-            o = np.stack([
-                r[f"others_sum_{e}"].astype(np.float64)
-                * np.exp(r[f"log_scale_{e}"].astype(np.float64))
-                for r in results])
-            lp = np.stack([np.where(r[f"aligned_{e}"], r[f"log_prob_{e}"],
-                                    neg_inf) for r in results]
-                          ).astype(np.float64)
-            exp_lp = np.where(np.isfinite(lp), np.exp(lp), 0.0)
-            best_lp = lp[best_g, ar]
-            aligned = out[f"aligned_{e}"].astype(bool)
-            others_total = o.sum(0) + exp_lp.sum(0) \
-                - np.where(aligned, np.exp(best_lp), 0.0)
-            mq = quality.mapping_quality_f64(
-                np.where(aligned, best_lp, 0.0),
-                np.maximum(others_total, 0.0), rogs[e_idx])
-            merged = np.clip(np.floor(mq), 0, cap).astype(np.int64)
-            in_group = _pick_rows(results, f"frag_score_{e}", best_g)
-            # in-group gate (dodgy / not well-anchored -> 0) wins
-            out[f"frag_score_{e}"] = np.where(
-                aligned & (in_group > 0), merged, in_group)
-        # disjoined recomputes from the MERGED state (both ends aligned
-        # across any groups, no pair) so the host disjoined rescue runs
-        out["disjoined"] = (out["aligned_1"].astype(bool)
-                            & out["aligned_2"].astype(bool)
-                            & ~out["pair_resolved"].astype(bool))
-        # anomalous accounting happens on the MERGED template (per-group
-        # counts would tally one template once per group it aligns in)
-        both = out["aligned_1"].astype(bool) & out["aligned_2"].astype(bool)
-        self._anomalous = getattr(self, "_anomalous", 0) + int(
-            (both & ~out["proper_pair"].astype(bool)).sum())
-        return out
+            # merged per-end mapping scores over the summed end neighborhoods
+            rogs = [quality.rest_of_genome_correction(g_total, l)
+                    for l in read_lens]
+            for e_idx, e in enumerate((1, 2)):
+                o = np.stack([
+                    r[f"others_sum_{e}"].astype(np.float64)
+                    * np.exp(r[f"log_scale_{e}"].astype(np.float64))
+                    for r in results])
+                lp = np.stack([np.where(r[f"aligned_{e}"], r[f"log_prob_{e}"],
+                                        neg_inf) for r in results]
+                              ).astype(np.float64)
+                exp_lp = np.where(np.isfinite(lp), np.exp(lp), 0.0)
+                best_lp = lp[best_g, ar]
+                aligned = out[f"aligned_{e}"].astype(bool)
+                others_total = o.sum(0) + exp_lp.sum(0) \
+                    - np.where(aligned, np.exp(best_lp), 0.0)
+                mq = quality.mapping_quality_f64(
+                    np.where(aligned, best_lp, 0.0),
+                    np.maximum(others_total, 0.0), rogs[e_idx])
+                merged = np.clip(np.floor(mq), 0, cap).astype(np.int64)
+                in_group = _pick_rows(results, f"frag_score_{e}", best_g)
+                # in-group gate (dodgy / not well-anchored -> 0) wins
+                out[f"frag_score_{e}"] = np.where(
+                    aligned & (in_group > 0), merged, in_group)
+            # disjoined recomputes from the MERGED state (both ends aligned
+            # across any groups, no pair) so the host disjoined rescue runs
+            out["disjoined"] = (out["aligned_1"].astype(bool)
+                                & out["aligned_2"].astype(bool)
+                                & ~out["pair_resolved"].astype(bool))
+            # anomalous accounting happens on the MERGED template (per-group
+            # counts would tally one template once per group it aligns in)
+            both = (out["aligned_1"].astype(bool)
+                    & out["aligned_2"].astype(bool))
+            self._anomalous = getattr(self, "_anomalous", 0) + int(
+                (both & ~out["proper_pair"].astype(bool)).sum())
+            return out
 
     def align_results_many(self, batches):
         """((b1, b2), merged result) pairs in batch order (see

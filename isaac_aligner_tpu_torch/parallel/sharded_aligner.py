@@ -19,7 +19,6 @@ link (`pack_device_result`, `compact_cand_result`) is left behind.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
@@ -27,6 +26,7 @@ from ..align import clippers
 from ..align.pipeline import score_end
 from ..aligner import Aligner, PairedAligner, _pad_to_seed, _upload
 from ..io.fastq import ReadBatch
+from ..utils import tracing
 from .sharded import (GS_HALO, Mesh, PlacedGenomeShards, _row_hooks,
                       make_mesh, place_genome_shards, place_sharded,
                       shard_genome_planes, shard_index, sharded_align_full,
@@ -98,16 +98,15 @@ class ShardedAligner(Aligner):
         """The planes were placed on the mesh at create."""
 
     def _dispatch(self, batch: ReadBatch):
-        t0 = time.perf_counter()
-        _check_rows(batch.bases.shape[0], self.mesh)
-        (bases, quals), (ob, oq), trims = _orig_and_masked(
-            batch, self.adapters, self.cfg.seed_len)
-        out = sharded_align_full(self.mesh, self.placed, ob, oq, self.cfg,
-                                 trims.astype(np.int32),
-                                 batch.lengths.astype(np.int32),
-                                 genome_shards=self.genome_shards)
-        self._t("dispatch", time.perf_counter() - t0)
-        return out, bases, quals, trims, batch
+        with tracing.collect(self.timings), tracing.span("dispatch"):
+            _check_rows(batch.bases.shape[0], self.mesh)
+            (bases, quals), (ob, oq), trims = _orig_and_masked(
+                batch, self.adapters, self.cfg.seed_len)
+            out = sharded_align_full(self.mesh, self.placed, ob, oq,
+                                     self.cfg, trims.astype(np.int32),
+                                     batch.lengths.astype(np.int32),
+                                     genome_shards=self.genome_shards)
+            return out, bases, quals, trims, batch
 
 
 @dataclasses.dataclass
@@ -153,30 +152,29 @@ class ShardedPairedAligner(PairedAligner):
         return (window if rescue else 0), rescue
 
     def _dispatch(self, b1: ReadBatch, b2: ReadBatch):
-        t0 = time.perf_counter()
-        _check_rows(b1.bases.shape[0], self.mesh)
-        btls = self._batch_tls(b1)
-        window, rescue = self._rescue_key(btls)
-        masked, orig, trims = [], [], []
-        for b in (b1, b2):
-            (bases, quals), o, t = _orig_and_masked(b, self.adapters,
-                                                    self.cfg.seed_len)
-            masked.append(ReadBatch(b.names, bases, quals, b.lengths))
-            orig.append(o)
-            trims.append(t)
-        if getattr(b1, "tls_hint", None) is not None:
-            # the masked copy reaches _apply_rescue: with the batch's model
-            # its skip count follows the program's rescue
-            masked[0].tls_hint = b1.tls_hint
-        out = sharded_align_paired_full(
-            self.mesh, self.placed, orig[0][0], orig[0][1], orig[1][0],
-            orig[1][1], self.cfg, btls, trims[0].astype(np.int32),
-            trims[1].astype(np.int32), b1.lengths.astype(np.int32),
-            b2.lengths.astype(np.int32), rescue=rescue,
-            genome_shards=self.genome_shards, window=window,
-            rescue_tls=self._rescue_tls(btls))
-        self._t("dispatch", time.perf_counter() - t0)
-        return out, masked[0], masked[1], trims, (b1, b2)
+        with tracing.collect(self.timings), tracing.span("dispatch"):
+            _check_rows(b1.bases.shape[0], self.mesh)
+            btls = self._batch_tls(b1)
+            window, rescue = self._rescue_key(btls)
+            masked, orig, trims = [], [], []
+            for b in (b1, b2):
+                (bases, quals), o, t = _orig_and_masked(b, self.adapters,
+                                                        self.cfg.seed_len)
+                masked.append(ReadBatch(b.names, bases, quals, b.lengths))
+                orig.append(o)
+                trims.append(t)
+            if getattr(b1, "tls_hint", None) is not None:
+                # the masked copy reaches _apply_rescue: with the batch's
+                # model its skip count follows the program's rescue
+                masked[0].tls_hint = b1.tls_hint
+            out = sharded_align_paired_full(
+                self.mesh, self.placed, orig[0][0], orig[0][1], orig[1][0],
+                orig[1][1], self.cfg, btls, trims[0].astype(np.int32),
+                trims[1].astype(np.int32), b1.lengths.astype(np.int32),
+                b2.lengths.astype(np.int32), rescue=rescue,
+                genome_shards=self.genome_shards, window=window,
+                rescue_tls=self._rescue_tls(btls))
+            return out, masked[0], masked[1], trims, (b1, b2)
 
     def _apply_rescue(self, res, b1: ReadBatch, b2: ReadBatch):
         """The rescue ran in the program; when the TLS window was over

@@ -1,7 +1,7 @@
-"""Logging, phase timing, and per-read forensic tracing.
+"""Logging, phase timing, per-read forensic tracing, and stage spans.
 
-The port's own copy of `isaac_aligner_tpu/utils/tracing.py`, unchanged,
-with the same environment variables.  Reference analogs
+The first three are the JAX package's `utils/tracing.py` under the same
+environment variables.  Reference analogs
 (src/c++/include/common/Debug.hh):
   - ISAAC_THREAD_CERR (:40-62)  -> log(): timestamped stderr lines
   - ISAAC_TRACE_STAT  (:59-62)  -> phase(): wall/cpu clock + RSS from
@@ -12,11 +12,19 @@ with the same environment variables.  Reference analogs
     read names) or set_trace_reads(), and dumps each traced read's
     journey through the device pipeline (seed hits, candidates, scores,
     final placement) from the result arrays.
+
+Stage spans (`span`, `spanned`, `collect`) are the port's own: each adds
+its wall seconds to the `timings` dict of the aligner doing the work
+(`MatchSelectorStats.json` `stage_seconds`), and, while a torch profiler
+is collecting, names its stretch of the trace "isaac:<name>".  This
+module imports no torch: the output process imports it too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
 import os
 import sys
 import time
@@ -117,3 +125,80 @@ def trace_batch(names: list[str], res: dict, suffix: str = "") -> None:
                 lines.append(
                     f"  candidates[{len(cands)}] = {' '.join(cands)}")
         log("\n".join(lines), force=True)
+
+
+# -- stage spans --------------------------------------------------------------
+
+#: prefix of the program's ranges in a torch.profiler trace (`bench:` is
+#: the benchmark's own)
+PROFILER_PREFIX = "isaac:"
+
+_collector: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "isaac_span_collector", default=None)
+
+
+@contextlib.contextmanager
+def collect(timings: dict):
+    """Spans opened in the block, at any depth of calls, add their
+    seconds to `timings` (an aligner's `timings`)."""
+    token = _collector.set(timings)
+    try:
+        yield timings
+    finally:
+        _collector.reset(token)
+
+
+def _profiling() -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+class span:
+    """`with span("polish.gapped"):` adds the block's wall seconds
+    (time.perf_counter, recorded also when the block raises) to the
+    current collector under the name; without one it adds nothing.  While
+    a torch profiler is collecting, the block is also a range named
+    "isaac:<name>" on the host's timeline of the trace, on the clock of
+    the device's kernels and copies.  The range is a function-scope
+    record (`_RecordFunctionFast`), not a user annotation: the profiler
+    draws no copy of it on the device's timeline, whose busy time stays
+    that of the kernels and copies alone; a kernel belongs to the range
+    that holds its launch (the launch's correlation id).
+
+    Spans go around stages, never around a row or a pair: with the
+    profiler off one costs two perf_counter calls, a dict add and a
+    check of the profiler's flag."""
+
+    __slots__ = ("name", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiling():
+            self.rf = sys.modules["torch"]._C._profiler._RecordFunctionFast(
+                PROFILER_PREFIX + self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        timings = _collector.get()
+        if timings is not None:
+            timings[self.name] = timings.get(self.name, 0.0) + dt
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def spanned(name: str):
+    """Decorator: every call of the function is a `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap

@@ -899,7 +899,7 @@ class AlignWorkflow:
                 for (lane, tile, sample, read), agg in sorted(per_tile.items())]
         stats["align_seconds"] = round(time.time() - t0, 2)
         t_host.update(aligner.timings)
-        stats["stage_seconds"] = {k: round(v, 2) for k, v in t_host.items()}
+        stats["stage_seconds"] = {k: round(v, 3) for k, v in t_host.items()}
         # device work of the host-driven passes: pairs sent to the banded
         # SW kernel, and (pairs) orphan rows scanned by the rescue
         stats["device_work"] = {k: getattr(aligner, k) for k in
