@@ -16,7 +16,10 @@ their path against its plain torch version.  Phases, one line each:
      offset 0 or 15, bit-equal to `banded_sw_torch` on the same CUDA
      tensors and, on 256 pairs, to the numpy oracle; L over the kernel's
      limit raises; times both at 8,192 x 100 (and again at the slice's own
-     launch shape after phase 4, the times the kernel line reports);
+     launch shape after phase 4, the times the kernel line reports); the
+     traceback walk `sw_walk` equal to `sw_walk_torch` on every row with
+     both scorings at the polish's 1,300 and 2,400 pairs of 150 bp (timed),
+     ragged blocks, 896 x 100 and the longest query;
   4. library slice: 4.6 Mbp repeat-rich genome from --seed, 32-mer index,
      4 x 32,768 reads of 100 bp (1% substitutions, half reverse
      complemented, 3% with a 1-8 bp indel) through the aligner on the card;
@@ -128,9 +131,11 @@ their path against its plain torch version.  Phases, one line each:
 It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
-Then one JSON line of kernel results (launches: the workflows' runs of
-phases 5, 7, 10, 11, 12, 13, 16, 17 and 18, phase 14's sharded runs and
-phase 15's two processes), the card line, and the last line {"ok": true, "device":
+Every main path's run (and phase 4's) counts both kernels' launches and
+fails unless sw_walk launched as often as banded_sw.  Then one JSON line
+of kernel results (launches: the workflows' runs of phases 5, 7, 10, 11,
+12, 13, 16, 17 and 18, phase 14's sharded runs and phase 15's two
+processes), the card line, and the last line {"ok": true, "device":
 {...}}.
 Any failed check raises: the exit code is non-zero and no result line is
 printed.
@@ -159,7 +164,7 @@ if __name__ != "__mp_main__":
     import torch
 
     from isaac_aligner_tpu_torch import synthetic
-    from isaac_aligner_tpu_torch.align import pairs
+    from isaac_aligner_tpu_torch.align import gapped, pairs, quality
     from isaac_aligner_tpu_torch.align.pipeline import (AlignConfig,
                                                         default_seed_offsets,
                                                         find_seed_hits,
@@ -209,6 +214,10 @@ BCL_SUBSET = 4_096          # phase 16: clusters of the card-vs-CPU tile
 PB_PAIRS = 131_072          # phase 18: pairs of the per-barcode run
 SW_LENGTHS = (1, 4, 5, 100, 101, 150, 251, 400)
 SW_BATCHES = (1, 3, 896, 8_192, 65_537)
+# sw_walk at the gapped polish's launch sizes on the benchmark's cells
+# (~1,300 pairs a call on E. coli, ~2,400 on the GRCh38 cut, 150 bp reads)
+WALK_LEN = 150
+WALK_PAIRS = (1_300, 2_400)
 
 # The card's peak rates (H100 SXM data sheet, 700 W): 3.35 TB/s of HBM and
 # 67 TFLOP/s of f32 outside the tensor cores, i.e. 33.5e12 f32 add lanes/s
@@ -336,6 +345,92 @@ def check_and_time(rng, dev, n: int, l: int, scores, time_it: bool,
     return out
 
 
+def walk_bound(rows: np.ndarray, l: int) -> float:
+    """Least milliseconds for sw_walk over the HBM rate, from the bytes
+    the work needs of these walks (their rows, on the host): per pair gfin
+    and one 32-byte sector of traceback words for each group of TB_PACK
+    query rows (the walk visits every row), the header and the runs it
+    writes; for a gapped pair the query, the qualities and the window bases
+    its M runs read; the two tables once.  Its work is a serial chain per
+    pair, so no rate of operations bounds it."""
+    n = len(rows)
+    runs = rows[:, sw.WALK_HDR:]
+    m_bases = np.where((runs & 3) == 0, runs >> 2, 0).sum(axis=1)
+    gapped_rows = (rows[:, 2] & sw.WALK_GAPPED) != 0
+    nbytes = (n * (4 * sw.BAND + 32 * -(-l // sw.TB_PACK) + 4 * sw.WALK_HDR)
+              + 4 * int(rows[:, 1].sum())
+              + int((2 * l + m_bases[gapped_rows]).sum())
+              + 2 * 8 * sw.WALK_QUALS)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def reset_launches() -> None:
+    """Zero both kernels' launch counters before a main path's run."""
+    sw.banded_sw.launches = 0
+    sw.sw_walk.launches = 0
+
+
+def path_launches(what: str) -> int:
+    """banded_sw's launches since reset_launches, after checking that
+    sw_walk launched as often: on the card the gapped polish walks every
+    banded_sw call's pairs with one sw_walk launch."""
+    banded, walks = sw.banded_sw.launches, sw.sw_walk.launches
+    if walks != banded:
+        raise AssertionError(f"{what}: {walks} sw_walk launches for "
+                             f"{banded} banded_sw launches")
+    return banded
+
+
+def check_and_time_walk(rng, dev, n: int, l: int, gs, time_it: bool) -> dict:
+    """sw_walk kernel vs sw_walk_torch on the same CUDA tensors (every
+    row, the float64 log-probability's words included), on pairs two
+    thirds of which carry an indel; with time_it, the kernel's device time
+    and the plain version's host wall of one call."""
+    q, db, ql = synthetic.sw_walk_pairs(rng, n, l)
+    qd, dbd, qld = (torch.from_numpy(x).to(dev) for x in (q, db, ql))
+    g, tb = sw.banded_sw(qd, dbd, gs.sw_scores())
+    args = (g, tb, qd, dbd, qld, *quality.log_tables_f64(dev), gs.norms())
+    got = sw.sw_walk(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sw.sw_walk_torch(*args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, want):
+        rows = int((got != want).any(dim=1).sum())
+        raise AssertionError(f"sw_walk kernel != plain at N={n} L={l}: "
+                             f"{rows} rows differ")
+    gapped_frac = float(((want[:, 2] & sw.WALK_GAPPED) != 0).float().mean())
+    out = {"gapped": gapped_frac}
+    if time_it:
+        out["ms"] = cuda_ms(lambda: sw.sw_walk(*args), 200)
+        out["plain_ms"] = plain_ms
+        out["bound_ms"] = walk_bound(want.cpu().numpy(), l)
+    return out
+
+
+def phase_walk(rng, dev) -> dict:
+    """sw_walk kernel vs its plain version at the polish's launch sizes
+    (timed), both gap scorings, ragged blocks and the longest query."""
+    times = {}
+    for gs in (gapped.BWA, gapped.ELAND):
+        for n in WALK_PAIRS:
+            t = check_and_time_walk(rng, dev, n, WALK_LEN, gs,
+                                    time_it=gs is gapped.BWA)
+            if "ms" in t:
+                times[n] = t
+        for n, l in ((1, WALK_LEN), (5, WALK_LEN), (896, 100),
+                     (8, sw.MAX_LEN)):
+            check_and_time_walk(rng, dev, n, l, gs, False)
+    print(f"[3/18] kernel vs plain: sw_walk equal to sw_walk_torch, every "
+          f"row (bwa+eland; N in {WALK_PAIRS} at L={WALK_LEN}, ragged N 1 "
+          f"and 5, 896 x 100, 8 x {sw.MAX_LEN}); "
+          + "; ".join(f"N={n} L={WALK_LEN} ({t['gapped']:.3f} gapped): "
+                      f"kernel {t['ms']:.5f} ms (bound {t['bound_ms']:.5f} "
+                      f"ms by bytes), plain {t['plain_ms']:.1f} ms"
+                      for n, t in times.items()), flush=True)
+    return times[WALK_PAIRS[-1]]
+
+
 def phase_kernel(rng, dev) -> None:
     """Kernel vs plain version on the card (and the numpy oracle)."""
     shapes = ([(896, l) for l in SW_LENGTHS]
@@ -386,7 +481,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     batch = read_fastq(fq)
     batches = [ReadBatch(names=batch.names[i:i + BATCH],
@@ -399,7 +494,7 @@ def phase_slice(args, dev, card: str, tmp: Path):
     align_s = time.perf_counter() - t_align
     write_sam(tmp / "out.sam", recs, genome.contigs)
     slice_s = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the slice')
 
     n = len(recs)
     idx = np.array([int(r.qname[1:]) for r in recs])
@@ -415,7 +510,8 @@ def phase_slice(args, dev, card: str, tmp: Path):
           f"{index.num_records} index records, {n} reads in {N_BATCHES} "
           f"batches of {BATCH}: aligned {aligned_frac:.4f}, within 8 bp of "
           f"truth {placed_frac:.4f}, gapped CIGAR on {gapped_frac:.4f} of "
-          f"mapped indel reads, banded_sw launches {launches}; FASTQ->SAM "
+          f"mapped indel reads, banded_sw"
+          f" and sw_walk launches {launches}; FASTQ->SAM "
           f"{n / slice_s:.1f} reads/s ({slice_s:.2f} s), align_to_sam_many "
           f"{n / align_s:.1f} reads/s ({align_s:.2f} s; dispatch "
           f"{al.timings['dispatch']:.2f} s, fetch {al.timings['fetch']:.2f} s, "
@@ -474,11 +570,11 @@ def phase_workflow(args, genome, index, card: str, tmp: Path):
     write_fastq(tmp / "subset.fq", sim.bases[:WF_SUBSET])
     setup_s = time.perf_counter() - t0
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = run_workflow(tmp / "idx", tmp / "wf.fq", tmp / "wf", "cuda", BATCH)
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the single-end workflow')
     libs = native.loaded()
 
     t0 = time.perf_counter()
@@ -491,7 +587,8 @@ def phase_workflow(args, genome, index, card: str, tmp: Path):
           f"{stage_split(ms)}; build_seconds {build['build_seconds']:.2f} s, "
           f"{build['bins']} bin(s), duplicates {build['duplicates']}, "
           f"realigned {build['realigned']}); aligned {aligned_frac:.4f}, "
-          f"within 8 bp of truth {placed_frac:.4f}, banded_sw launches "
+          f"within 8 bp of truth {placed_frac:.4f}, banded_sw"
+          f" and sw_walk launches "
           f"{launches}; native host libraries {libs}; BAM check {read_s:.1f} "
           f"s, setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
@@ -656,7 +753,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
         write_fastq(tmp / f"pe_sub{e}.fq", reads[:PE_SUBSET], "t")
     setup_s = time.perf_counter() - t0
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -664,7 +761,7 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
     stats = run_workflow(tmp / "idx", tmp / "pe1.fq", tmp / "pe_wf", "cuda",
                          BATCH, fastq2=tmp / "pe2.fq")
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the paired workflow')
     working = working_set(mem0, [SeedIndex.load(tmp / "idx")])
 
     t0 = time.perf_counter()
@@ -682,7 +779,8 @@ def phase_paired_workflow(args, genome, card: str, tmp: Path):
           f"{build['realigned']}); learned {tls}; {m['summary']}; "
           f"proper_pairs {ms['proper_pairs']}, anomalous_pairs "
           f"{finder.get('anomalous_pairs')}, rescue_skipped "
-          f"{finder.get('rescue_skipped', 0)}; banded_sw launches {launches} "
+          f"{finder.get('rescue_skipped', 0)}; banded_sw"
+          f" and sw_walk launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
           f"{work['rescue_calls']} calls; {working}; BAM check {read_s:.1f} s, "
           f"setup {setup_s:.1f} s [{card}]", flush=True)
@@ -1016,12 +1114,12 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
                                read_len=READ_LEN, indel_frac=0.03, max_indel=8)
     write_fastq(tmp / "g_wf.fq", sim.bases)
     write_fastq(tmp / "g_sub.fq", sim.bases[:GM_SUBSET])
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = run_workflow(tmp / "idx8", tmp / "g_wf.fq", tmp / "g_wf", "cuda",
                          BATCH)
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the grouped workflow')
     aligned_frac, placed_frac = check_se_bam(tmp / "g_wf" / "sorted.bam",
                                              genome, sim)
     ms, build = stats["MatchSelectorStats"], stats["BuildStats"]
@@ -1043,7 +1141,7 @@ def phase_grouped_workflow(args, genome, card: str, tmp: Path) -> int:
           f"); aligned {aligned_frac:.4f}, within 8 bp of truth "
           f"{placed_frac:.4f} (pass-2 reads {finder.get('pass2_reads')}, "
           f"dropped {finder.get('pass2_dropped')}, over both groups); "
-          f"banded_sw launches {launches} "
+          f"banded_sw and sw_walk launches {launches} "
           f"({ms['device_work']['sw_pairs']} pairs); groups: {groups}; card "
           f"free {free} of {total} B [{card}]", flush=True)
     print_kernel_at("10/18", "grouped run", rng,
@@ -1080,7 +1178,7 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
     for e, reads in ((1, sp.bases1), (2, sp.bases2)):
         write_fastq(tmp / f"gpe{e}.fq", reads, "t")
         write_fastq(tmp / f"gpe_sub{e}.fq", reads[:PE_SUBSET], "t")
-    sw.banded_sw.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -1088,7 +1186,7 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
     stats = run_workflow(tmp / "idx8", tmp / "gpe1.fq", tmp / "gpe_wf",
                          "cuda", BATCH, fastq2=tmp / "gpe2.fq")
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the grouped paired workflow')
     working = working_set(mem0,
                           load_grouped_indexes(tmp / "idx8", mmap=True))
     m = check_paired_bam(tmp / "gpe_wf" / "sorted.bam", genome, sp, stats)
@@ -1101,7 +1199,7 @@ def phase_grouped_paired(args, genome, card: str, tmp: Path) -> int:
           f"{2 * PE_PAIRS / wall:.1f} reads/s ({wall:.2f} s; align_seconds "
           f"{ms['align_seconds']:.2f} s: {stage_split(ms)}; build_seconds "
           f"{build['build_seconds']:.2f} s); learned {m['tls']}; "
-          f"{m['summary']}; banded_sw launches {launches} "
+          f"{m['summary']}; banded_sw and sw_walk launches {launches} "
           f"({work['sw_pairs']} pairs); rescue {work['rescue_rows']} rows in "
           f"{work['rescue_calls']} calls; {working} [{card}]", flush=True)
     print_kernel_at("11/18", "grouped paired run", rng, work["sw_pairs"],
@@ -1190,7 +1288,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
           f"neighbor bits equal; {plane_bytes(disk)} B of planes on the card "
           f"[{card}]", flush=True)
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -1198,7 +1296,7 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
     stats = run_workflow(tmp / "idx64", tmp / "wf.fq", tmp / "wf64", "cuda",
                          BATCH, seed_len=64)
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the 64-mer workflow')
     working = working_set(mem0, [disk])
     mapped, placed = read_se_bam(tmp / "wf64" / "sorted.bam", genome, sim)
     ok = seedable(genome, sim, 64)
@@ -1214,7 +1312,8 @@ def phase_index64(args, genome, sim, card: str, tmp: Path) -> int:
           f"the {int(ok.sum())} with an exact N-free 64-mer seed window, "
           f"within 8 bp of truth {placed_aligned:.4f} of the aligned "
           f"(seeds without a match {finder.get('seeds_no_match')}, repeat-"
-          f"suppressed {finder.get('seeds_too_many')}); banded_sw launches "
+          f"suppressed {finder.get('seeds_too_many')}); banded_sw"
+          f" and sw_walk launches "
           f"{launches} ({ms['device_work']['sw_pairs']} pairs); {working} "
           f"[{card}]",
           flush=True)
@@ -1242,7 +1341,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     rng = np.random.default_rng(args.seed + 8)
     opts = {"neighborhood_size_threshold": NB_THRESHOLD,
             "scatter_repeats": True}
-    sw.banded_sw.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -1250,7 +1349,7 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     stats = run_workflow(tmp / "idx", tmp / "pe1.fq", tmp / "pe_opts", "cuda",
                          BATCH, fastq2=tmp / "pe2.fq", **opts)
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches("the options' paired workflow")
     index = SeedIndex.load(tmp / "idx")
     working = working_set(mem0, [index], neighbors=True)
     m = check_paired_bam(tmp / "pe_opts" / "sorted.bam", genome, sp, stats)
@@ -1422,9 +1521,9 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
                                     genome_sharded=gs)
             if paired:
                 al.tls = tls
-            sw.banded_sw.launches = 0
+            reset_launches()
             got = al.align_batch_arrays(*inputs)
-            launches += sw.banded_sw.launches
+            launches += path_launches('the sharded drivers')
             pairs_sw += al.sw_pairs
             bad, n_stale = spmd_diff(want, got)
             mode = f"({data}, {shard}){' genome-sharded' if gs else ''}"
@@ -1445,7 +1544,8 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
     print(f"[14/18] SPMD library, {SPMD_READS} reads and {SPMD_READS} pairs "
           f"over meshes of cuda:0 entries (a batch through "
           f"align_batch_arrays, wall, after a warm-up; the dispatch between "
-          f"CUDA events): {'; '.join(rows)}; banded_sw launches {launches} "
+          f"CUDA events): {'; '.join(rows)}; banded_sw"
+          f" and sw_walk launches {launches} "
           f"({pairs_sw} pairs) [{card}]", flush=True)
     if launches <= 0:
         raise AssertionError("the sharded drivers never launched banded_sw")
@@ -1514,10 +1614,14 @@ def phase_multihost(args, tmp: Path, card: str) -> int:
     pairs_sw = sum(p["sw_pairs"] for p in procs)
     if min(p["launches"] for p in procs) <= 0:
         raise AssertionError(f"a process never launched banded_sw: {procs}")
+    if any(p["walk_launches"] != p["launches"] for p in procs):
+        raise AssertionError(f"a process launched sw_walk and banded_sw "
+                             f"unequally often: {procs}")
     split = "; ".join(
         f"process {p['process']}: align_seconds {p['align_seconds']:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in p['stage_seconds'].items())}"
-        f"), banded_sw launches {p['launches']} ({p['sw_pairs']} pairs)"
+        f"), banded_sw"
+        f" and sw_walk launches {p['launches']} ({p['sw_pairs']} pairs)"
         for p in procs)
     ms = result["counts"]["match_selector"]
     print(f"[15/18] multi-process workflow: {PE_PAIRS} pairs, 2 processes on "
@@ -1616,12 +1720,12 @@ def phase_bcl(args, genome, sp, card: str, tmp: Path) -> int:
                 sample_sheet=str(tmp / "sheet16.csv"), per_tile_tls=True,
                 bam_exclude_tags="none")
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = run_workflow(tmp / "idx", None, tmp / "bcl_wf", "cuda", BATCH,
                          **opts)
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the run-folder workflow')
 
     t0 = time.perf_counter()
     out = tmp / "bcl_wf"
@@ -1687,7 +1791,8 @@ def phase_bcl(args, genome, sp, card: str, tmp: Path) -> int:
           f"{placed[0, pf].mean():.4f}/{placed[1, pf].mean():.4f}, proper "
           f"{proper_frac:.4f} of {int(normal.sum())} undamaged near pairs; "
           f"per-tile TLS medians {sorted(medians.values())}; ZX/ZY/BC/RG of "
-          f"{len(recs)} records equal the planted ones; banded_sw launches "
+          f"{len(recs)} records equal the planted ones; banded_sw"
+          f" and sw_walk launches "
           f"{launches} ({ms['device_work']['sw_pairs']} pairs); checks "
           f"{check_s:.1f} s, setup {setup_s:.1f} s [{card}]", flush=True)
     if launches <= 0:
@@ -1739,12 +1844,12 @@ def phase_bam_input(args, genome, sp, card: str, tmp: Path) -> int:
     if not pr["paired"] or pr["templates"] != PE_PAIRS:
         raise AssertionError(f"pairedness probe {pr}")
 
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stats = run_workflow(tmp / "idx", None, tmp / "bam_wf", "cuda", BATCH,
                          bam_input=str(src))
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the BAM-input workflow')
     t0 = time.perf_counter()
     m = check_paired_bam(tmp / "bam_wf" / "sorted.bam", genome, sp, stats)
     ends_in = {(r.qname, r.flag & 0xC0) for r in read_bam_core(src)[1]}
@@ -1820,7 +1925,7 @@ def phase_per_barcode(args, genome, genome8, card: str, tmp: Path) -> int:
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    sw.banded_sw.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     wf = AlignWorkflow(WorkflowOptions(
         reference=str(tmp / "idx"), output_dir=str(tmp / "pb"),
@@ -1830,7 +1935,7 @@ def phase_per_barcode(args, genome, genome8, card: str, tmp: Path) -> int:
         device="cuda"))
     wf.run()
     wall = time.perf_counter() - t0
-    launches = sw.banded_sw.launches
+    launches = path_launches('the per-barcode run')
     driver = getattr(wf, "per_barcode", None)
     if not isinstance(driver, PerBarcodeDriver) or \
             set(driver.device_bytes) != {"A", "B", "unknown"} or \
@@ -1881,7 +1986,8 @@ def phase_per_barcode(args, genome, genome8, card: str, tmp: Path) -> int:
           f"equal to an independent barcode match); FASTQ->BAM "
           f"{n_rec / wall:.1f} reads/s ({wall:.2f} s, every sample's passes "
           f"included); allocated after each sub-workflow "
-          f"{driver.device_bytes} B, baseline {base} B; banded_sw launches "
+          f"{driver.device_bytes} B, baseline {base} B; banded_sw"
+          f" and sw_walk launches "
           f"{launches} ({sw_pairs} pairs); setup {setup_s:.1f} s [{card}]",
           flush=True)
     if launches <= 0:
@@ -1904,14 +2010,16 @@ def main() -> None:
     print(f"[1/18] card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
 
-    _build.load_kernel("banded_sw")
-    report, build_s = _build.build_info("banded_sw")
-    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
-            or "spill" in ln]
-    print(f"[2/18] built banded_sw.cu in {build_s:.1f} s: {'; '.join(regs)}",
-          flush=True)
+    for name in ("banded_sw", "sw_walk"):
+        _build.load_kernel(name)
+        report, build_s = _build.build_info(name)
+        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln
+                or "spill" in ln]
+        print(f"[2/18] built {name}.cu in {build_s:.1f} s: {'; '.join(regs)}",
+              flush=True)
 
     phase_kernel(np.random.default_rng(args.seed + 1), dev)
+    walk = phase_walk(np.random.default_rng(args.seed + 2), dev)
     # (phase, seconds from the start to its end)
     ends = [("1-3", time.perf_counter() - t_start)]
 
@@ -1966,7 +2074,8 @@ def main() -> None:
     launches = sum(c for _, c in counts)
     per_phase = ", ".join(f"{p} {e - s:.1f} s" for (_, s), (p, e)
                           in zip([("", 0.0)] + ends, ends))
-    print(f"banded_sw launches on the main paths: "
+    print(f"banded_sw and sw_walk launches on the main paths (equal in "
+          f"each): "
           f"{' + '.join(f'{what} {c}' for what, c in counts)} = {launches}; "
           f"all phases in {time.perf_counter() - t_start:.1f} s ({per_phase})",
           flush=True)
@@ -1984,7 +2093,15 @@ def main() -> None:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         # no PyTorch call computes banded SW with a traceback
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "sw_walk", "route": "cuda",
+        "source": "isaac_aligner_tpu_torch/ops/csrc/sw_walk.cu",
+        "replaces": None,
+        # the main paths' runs, as banded_sw's: each path launched both
+        # kernels equally often (path_launches, phase 15's processes)
+        "launches": launches, "n": WALK_PAIRS[-1], "ms": walk["ms"],
+        "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

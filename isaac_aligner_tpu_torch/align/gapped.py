@@ -6,8 +6,9 @@ GappedAligner.cpp:167-253).  Rows whose ungapped alignment shows more than
 reference bases (flanks split 7/8); the gapped result replaces the
 ungapped one when its normalized score is better.
 
-Every triggered chunk goes to `ops.sw.banded_sw` on the aligner's device:
-the CUDA kernel on a card, its plain torch version on the CPU.  The JAX
+Every triggered chunk goes to `ops.sw.banded_sw` on the aligner's device,
+and its traceback walk and rescore to `ops.sw.sw_walk` on the same device:
+the CUDA kernels on a card, their plain versions on the CPU.  The JAX
 package's HOST_DP_MAX threshold (small chunks on the host numpy DP) was
 sized for the TPU link's round trip and is dropped; the results are the
 same either way, since all versions are bit-identical.
@@ -58,6 +59,11 @@ class GapScoring:
     @property
     def norm_max_extend(self) -> int:
         return int(-self.min_extend)
+
+    def norms(self) -> tuple[int, int, int, int]:
+        """(mismatch, open, extend, max extend) normalized, for ops.sw."""
+        return (self.norm_mismatch, self.norm_open, self.norm_extend,
+                self.norm_max_extend)
 
     def sw_scores(self) -> tuple[float, float, float, float]:
         """(match, mismatch, open, extend) for ops.sw."""
@@ -117,10 +123,6 @@ def cigar_stats(cigar: list[tuple[int, str]], gs: GapScoring = BWA):
             norm += gs.norm_open + min(gs.norm_max_extend,
                                        (length - 1) * gs.norm_extend)
     return obs, gap_bases, gap_count, norm
-
-
-def cigar_to_str(cigar: list[tuple[int, str]]) -> str:
-    return "".join(f"{n}{op}" for n, op in cigar)
 
 
 def rescore_cigar(genome_codes, start, seq, quals, cigar,
@@ -205,13 +207,20 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
                   bases: np.ndarray, device, suffix: str = "",
                   trigger: int = MISMATCHES_CUTOFF,
                   quals: np.ndarray | None = None,
-                  gs: GapScoring = BWA, avoid_sw: bool = False) -> int:
+                  gs: GapScoring = BWA, avoid_sw: bool = False, *,
+                  tally) -> int:
     """Re-align triggered rows with banded SW on `device`; mutate `res`.
 
     res must carry (with `suffix`): aligned, start, reverse, mismatches,
     edit_distance, log_prob.  Adds/updates `cigar{suffix}` (list of
     per-row CIGAR strings, None for the default full-M).  Returns the
-    number of (query, window) pairs scored by `sw.banded_sw`.
+    number of (query, window) pairs scored by `sw.banded_sw`, and adds
+    those whose gapped result replaced the ungapped one to
+    `tally.sw_accepted` (the aligner's counter).
+
+    `sw.sw_walk` walks and rescores every pair where `banded_sw` left its
+    outputs (on a card, in a kernel), so the host only takes the accepted
+    rows' results.
     """
     s = suffix
     genome = index.genome
@@ -253,53 +262,63 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
                 continue  # --avoid-smith-waterman: no gap evidence
             queries.append(q)
             dbs.append(db)
-            metas.append((int(r), win_start, left))
+            metas.append((int(r), win_start))
     if not metas:
         return 0
 
     if quals is None:
         quals = np.full_like(bases, 30)
+    rk, win_starts = (np.array(col, np.int64) for col in zip(*metas))
 
     with tracing.span("polish.gapped.kernel"):
+        # oriented qualities, reversed with their reads
+        rq = quals[rk].astype(np.uint8)
+        rev = res["reverse" + s][rk].astype(bool)
+        rq[rev] = rq[rev, ::-1]
         q_dev = torch.from_numpy(np.stack(queries).astype(np.uint8)).to(device)
         db_dev = torch.from_numpy(np.stack(dbs).astype(np.uint8)).to(device)
+        ql_dev = torch.from_numpy(rq).to(device)
         gfin, tb = sw.banded_sw(q_dev, db_dev, gs.sw_scores())
-        gfin = gfin.cpu().numpy()
-        tb = tb.cpu().numpy()
+        walks = sw.sw_walk(gfin, tb, q_dev, db_dev, ql_dev,
+                           *quality.log_tables_f64(device),
+                           gs.norms()).cpu().numpy()
     with tracing.span("polish.gapped.traceback"):
-        for k, (r, win_start, _left) in enumerate(metas):
-            exit_d = int(np.argmax(gfin[k]))
-            ops, first_db = sw.traceback(tb[k], exit_d, read_len)
-            cigar = sw.ops_to_cigar(ops)
-            if all(op == "M" for _, op in cigar):
-                continue  # no gap found; keep ungapped
-            new_start = win_start + first_db
-            rq = quals[r][::-1] if res["reverse" + s][r] else quals[r]
-            lp, nmm_g, edit_g, norm_g = rescore_cigar(
-                g_codes, new_start, queries[k], rq, cigar, gs)
-            norm_u = int(res["mismatches" + s][r]) * gs.norm_mismatch
-            # FragmentBuilder acceptance: strictly better normalized score,
-            # or equal score with higher log probability
-            if norm_g < norm_u or (norm_g == norm_u
-                                   and lp > res["log_prob" + s][r]):
-                res["start" + s][r] = new_start
-                res["mismatches" + s][r] = nmm_g
-                res["edit_distance" + s][r] = edit_g
-                res["log_prob" + s][r] = lp
-                res[key][r] = cigar_to_str(cigar)
-                # re-derive the mapping score with the improved best lp
-                # against the (ungapped) neighborhood mass, exported
-                # exp(-log_scale)-scaled
-                if "others_sum" + s in res:
-                    rog = quality.rest_of_genome_correction(
-                        genome.total_length, read_len)
-                    scale = float(res["log_scale" + s][r]) \
-                        if "log_scale" + s in res else 0.0
-                    nb = float(res["others_sum" + s][r]) * np.exp(scale) + rog
-                    score = int(np.floor(-10.0 * np.log10(
-                        nb / (nb + np.exp(lp)))))
-                    if "mapq" + s in res:
-                        res["mapq" + s][r] = min(score, cfg.mapq_cap)
-                    if "frag_score" + s in res:
-                        res["frag_score" + s][r] = score
+        w = sw.decode_walk(walks)
+        if (w["flags"] & sw.WALK_BAD).any():
+            bad = rk[(w["flags"] & sw.WALK_BAD) != 0]
+            raise ValueError(f"sw_walk: rows {bad[:8].tolist()} left the band "
+                             f"or carry a quality >= {quality.MAX_Q}")
+        # FragmentBuilder acceptance, of walks that found a gap: strictly
+        # better normalized score, or equal score with higher log probability
+        norm_g = w["norm"]
+        norm_u = res["mismatches" + s][rk].astype(np.int64) * gs.norm_mismatch
+        lp = w["log_prob"]
+        take = ((w["flags"] & sw.WALK_GAPPED) != 0) & (
+            (norm_g < norm_u)
+            | ((norm_g == norm_u) & (lp > res["log_prob" + s][rk])))
+        k = np.nonzero(take)[0]
+        r = rk[k]
+        lp = lp[k]
+        res["start" + s][r] = win_starts[k] + w["first_db"][k]
+        res["mismatches" + s][r] = w["mismatches"][k]
+        res["edit_distance" + s][r] = w["edit"][k]
+        res["log_prob" + s][r] = lp
+        for kk, rr in zip(k.tolist(), r.tolist()):
+            res[key][rr] = sw.walk_cigar(walks[kk])
+        # re-derive the mapping score with the improved best lp against the
+        # (ungapped) neighborhood mass, exported exp(-log_scale)-scaled
+        if "others_sum" + s in res and k.size:
+            rog = quality.rest_of_genome_correction(genome.total_length,
+                                                    read_len)
+            scale = (res["log_scale" + s][r].astype(np.float64)
+                     if "log_scale" + s in res else 0.0)
+            nb = res["others_sum" + s][r].astype(np.float64) * np.exp(scale) \
+                + rog
+            score = np.floor(-10.0 * np.log10(nb / (nb + np.exp(lp)))
+                             ).astype(np.int64)
+            if "mapq" + s in res:
+                res["mapq" + s][r] = np.minimum(score, cfg.mapq_cap)
+            if "frag_score" + s in res:
+                res["frag_score" + s][r] = score
+    tally.sw_accepted += int(k.size)
     return len(metas)

@@ -51,6 +51,18 @@ def _tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.from_numpy(LOG_MISMATCH_NP).to(device))
 
 
+def log_tables_f64(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 (log match, log mismatch) tables on `device`, uploaded once
+    per device (the gapped polish's rescore on the card, `ops.sw.sw_walk`)."""
+    return _f64_tables_on(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _f64_tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.from_numpy(LOG_MATCH_F64).to(device),
+            torch.from_numpy(LOG_MISMATCH_F64).to(device))
+
+
 def rest_of_genome_correction(genome_length: int, read_length: int) -> float:
     """P(best alignment is elsewhere in the genome) prior: 2*G/4^L."""
     return float(np.exp(np.log(2.0) + np.log(float(genome_length))

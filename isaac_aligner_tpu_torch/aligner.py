@@ -145,8 +145,10 @@ class Aligner:
     # wall seconds per stage span (utils/tracing.span): upload, dispatch,
     # fetch, polish, stats, records and their dotted children
     timings: dict = dataclasses.field(default_factory=dict)
-    # (query, window) pairs sent to the banded SW kernel
+    # (query, window) pairs sent to the banded SW kernel, and those whose
+    # gapped result replaced the ungapped one
     sw_pairs: int = 0
+    sw_accepted: int = 0
 
     def ensure_uploaded(self) -> None:
         """Upload the index planes to the device if they are not there;
@@ -226,7 +228,7 @@ class Aligner:
                         self.index, self.cfg, res, bases, self.device,
                         quals=quals, gs=self.gap_scoring,
                         trigger=self.gapped_mismatches,
-                        avoid_sw=self.avoid_smith_waterman)
+                        avoid_sw=self.avoid_smith_waterman, tally=self)
                 with tracing.span("polish.indel"):
                     polish_simple_indels(
                         self.index, self.cfg, res, bases, quals=quals,
@@ -356,8 +358,10 @@ class PairedAligner:
     # wall seconds per stage span, as Aligner's (polish.rescue inside
     # polish)
     timings: dict = dataclasses.field(default_factory=dict)
-    # (query, window) pairs sent to the banded SW kernel
+    # (query, window) pairs sent to the banded SW kernel, and those whose
+    # gapped result replaced the ungapped one
     sw_pairs: int = 0
+    sw_accepted: int = 0
     # orphan rows scanned by rescue_shadows, and its calls
     rescue_rows: int = 0
     rescue_calls: int = 0
@@ -483,7 +487,7 @@ class PairedAligner:
                 self.sw_pairs += polish_gapped(
                     self.index, self.cfg, res, m.bases, self.device, sfx,
                     quals=m.quals, gs=gs, trigger=trig,
-                    avoid_sw=self.avoid_smith_waterman)
+                    avoid_sw=self.avoid_smith_waterman, tally=self)
         for sfx, m in (("_1", m1), ("_2", m2)):
             with tracing.span("polish.indel"):
                 polish_simple_indels(self.index, self.cfg, res, m.bases, sfx,

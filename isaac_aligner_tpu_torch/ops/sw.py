@@ -1,5 +1,5 @@
-"""Banded Smith-Waterman: the hand-written CUDA kernel, its plain torch
-version and the host traceback helpers.
+"""Banded Smith-Waterman: the hand-written CUDA kernels, their plain torch
+versions and the host traceback helpers.
 
 Port of `isaac_aligner_tpu/ops/sw.py`, whose Pallas TPU kernel `_sw_body`
 (launched by `banded_sw`, pl.pallas_call at sw.py:237) becomes
@@ -13,6 +13,13 @@ int32 word.
 `banded_sw_torch`, a direct transcription of the numpy oracle
 `banded_sw_numpy_batch`; CUDA tensors launch the kernel or raise.  It
 never falls back from one to the other.
+
+`sw_walk` takes `banded_sw`'s outputs where they lie and walks each pair's
+traceback, then rescores the walks that hold a gap (`csrc/sw_walk.cu`, which
+replaces no TPU kernel: the JAX package walks on the host).  The caller
+gives the quality tables and the normalized gap scores, so this module
+knows no scoring rule of its own.  Its plain version walks with
+`traceback` and `ops_to_cigar` per pair; the same dispatch rule holds.
 """
 
 from __future__ import annotations
@@ -185,6 +192,203 @@ def banded_sw(query: torch.Tensor, db: torch.Tensor, scores=BWA_SCORES):
 
 #: kernel launches on CUDA tensors (the CPU path does not count)
 banded_sw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# traceback walk and rescore (csrc/sw_walk.cu)
+# ---------------------------------------------------------------------------
+
+#: int32 words ahead of the runs in an `sw_walk` row: first_db, runs, flags,
+#: mismatches, edit distance, normalized score, then the float64
+#: log-probability's low and high words
+WALK_HDR = 8
+#: `sw_walk` flags: the walk holds an I or a D (only then is it rescored);
+#: the input was out of range (the row is zero but for this flag)
+WALK_GAPPED = 1
+WALK_BAD = 2
+#: run op codes: run = (length << 2) | op
+WALK_OPS = "MID"
+#: entries of each float64 quality table the kernel stages
+#: (align/quality.py MAX_Q)
+WALK_QUALS = 100
+
+
+def walk_runs(l: int) -> int:
+    """Run slots of an `sw_walk` row: a walk of an L-base query takes at
+    most 2L + 14 steps (L of M or I; D steps only undo the band offset,
+    exit_d <= 15 plus one an I step), so no walk has more runs."""
+    return 2 * l + BAND - 1
+
+
+def _walk_rescore(db, first_db: int, q, ql, cigar, log_match, log_mismatch,
+                  norms) -> tuple[float, int, int, int]:
+    """(log_prob, mismatches, edit distance, normalized score) of one
+    gapped walk, as the kernel sums them: float64 over the M bases in query
+    order (a query N always matches, a window N never does), the reference
+    read from the window at first_db onwards."""
+    norm_mismatch, norm_open, norm_extend, norm_max_extend = norms
+    lp, nmm, edit, norm = 0.0, 0, 0, 0
+    qpos, rpos = 0, first_db
+    for length, op in cigar:
+        if op == "M":
+            for _ in range(length):
+                s, r, qual = int(q[qpos]), int(db[rpos]), int(ql[qpos])
+                if s == 4 or (s == r and r != 4):
+                    lp += log_match[qual]
+                else:
+                    lp += log_mismatch[qual]
+                    nmm += 1
+                    norm += norm_mismatch
+                if s != r or s == 4:
+                    edit += 1
+                qpos += 1
+                rpos += 1
+        else:
+            if op == "I":
+                qpos += length
+            else:
+                rpos += length
+            edit += length
+            norm += norm_open + min(norm_max_extend,
+                                    (length - 1) * norm_extend)
+    return lp, nmm, edit, norm
+
+
+def sw_walk_torch(gfin: torch.Tensor, tb: torch.Tensor, query: torch.Tensor,
+                  window: torch.Tensor, quals: torch.Tensor,
+                  log_match: torch.Tensor, log_mismatch: torch.Tensor,
+                  norms: tuple[int, int, int, int]) -> torch.Tensor:
+    """Plain version of the `sw_walk` kernel, per pair on the host:
+    `traceback` from numpy's argmax of gfin, `ops_to_cigar` and, for a walk
+    with a gap, `_walk_rescore`, laid out as the kernel's rows.  A quality
+    past the tables makes the row bad here as there; a walk that leaves the
+    band (a traceback `banded_sw` never writes) is bad in the kernel, while
+    `traceback` wraps at d = -1."""
+    n, l = query.shape
+    out = np.zeros((n, WALK_HDR + walk_runs(l)), np.int32)
+    g, t, q, db, ql, lm, lmm = (x.cpu().numpy() for x in (
+        gfin, tb, query, window, quals, log_match, log_mismatch))
+    for k in range(n):
+        try:
+            ops, first_db = traceback(t[k], int(np.argmax(g[k])), l)
+            cigar = ops_to_cigar(ops)
+            gapped = any(op != "M" for _, op in cigar)
+            lp, nmm, edit, norm = (_walk_rescore(db[k], first_db, q[k], ql[k],
+                                                 cigar, lm, lmm, norms)
+                                   if gapped else (0.0, 0, 0, 0))
+        except IndexError:           # out of the band or of the tables
+            out[k, 2] = WALK_BAD
+            continue
+        out[k, :6] = (first_db, len(cigar), WALK_GAPPED if gapped else 0,
+                      nmm, edit, norm)
+        out[k, 6:8] = np.array([lp], np.float64).view(np.int32)
+        out[k, WALK_HDR:WALK_HDR + len(cigar)] = [
+            (length << 2) | WALK_OPS.index(op) for length, op in cigar]
+    return torch.from_numpy(out).to(query.device)
+
+
+@functools.cache
+def _walk_launcher():
+    """The C launcher of csrc/sw_walk.cu (built on first call), typed."""
+    from ._build import load_kernel
+
+    lib = load_kernel("sw_walk")
+    for name in ("sw_walk_max_len", "sw_walk_header", "sw_walk_quals"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    got = (lib.sw_walk_max_len(), lib.sw_walk_header(), lib.sw_walk_quals())
+    if got != (MAX_LEN, WALK_HDR, WALK_QUALS):
+        raise RuntimeError(
+            f"csrc/sw_walk.cu has (L limit, header, table entries) {got}; "
+            f"sw.py has {(MAX_LEN, WALK_HDR, WALK_QUALS)}")
+    fn = lib.sw_walk_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sw_walk(gfin: torch.Tensor, tb: torch.Tensor, query: torch.Tensor,
+            window: torch.Tensor, quals: torch.Tensor, log_match: torch.Tensor,
+            log_mismatch: torch.Tensor,
+            norms: tuple[int, int, int, int]) -> torch.Tensor:
+    """Walk each pair's traceback and rescore its gapped alignment.
+
+    Args:
+      gfin, tb: `banded_sw`'s outputs for these pairs.
+      query:  uint8 [N, L] oriented read codes, as given to `banded_sw`.
+      window: uint8 [N, L + BAND - 1] window codes, as given to `banded_sw`.
+      quals:  uint8 [N, L] oriented base qualities.
+      log_match, log_mismatch: float64 [WALK_QUALS] log-probability of a
+        matching and of a mismatching base, by quality.
+      norms: the normalized (mismatch, gap open, gap extend, max gap
+        extend) scores.
+
+    Returns int32 [N, WALK_HDR + walk_runs(L)]: per pair the header, then
+    its CIGAR runs in query order (`decode_walk`, `walk_cigar`).  CPU
+    tensors run `sw_walk_torch`; CUDA tensors launch the kernel (counted in
+    `sw_walk.launches`) or raise, also for L > MAX_LEN.
+    """
+    n, l = query.shape
+    shapes = {"gfin": (gfin, (n, BAND), torch.float32),
+              "tb": (tb, (n, -(-l // TB_PACK), BAND), torch.int32),
+              "query": (query, (n, l), torch.uint8),
+              "window": (window, (n, l + BAND - 1), torch.uint8),
+              "quals": (quals, (n, l), torch.uint8),
+              "log_match": (log_match, (WALK_QUALS,), torch.float64),
+              "log_mismatch": (log_mismatch, (WALK_QUALS,), torch.float64)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, want "
+                             f"{dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != query.device:
+            raise ValueError(f"{name} on {t.device}, query on {query.device}")
+    norms = tuple(int(x) for x in norms)
+    if len(norms) != 4:
+        raise ValueError(f"norms: want 4 scores, got {norms}")
+    dev = query.device
+    if dev.type == "cpu":
+        return sw_walk_torch(gfin, tb, query, window, quals, log_match,
+                             log_mismatch, norms)
+    if dev.type != "cuda":
+        raise ValueError(f"sw_walk: unsupported device {dev}")
+    if n == 0 or l == 0:            # nothing to launch
+        return torch.zeros((n, WALK_HDR + walk_runs(l)), dtype=torch.int32,
+                           device=dev)
+    if l > MAX_LEN:
+        raise ValueError(f"sw_walk kernel takes L <= {MAX_LEN}, got {l}")
+    fn = _walk_launcher()
+    out = torch.empty((n, WALK_HDR + walk_runs(l)), dtype=torch.int32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(gfin.data_ptr(), tb.data_ptr(), query.data_ptr(),
+                window.data_ptr(), quals.data_ptr(), log_match.data_ptr(),
+                log_mismatch.data_ptr(), n, l, *norms, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sw_walk kernel launch failed: CUDA error {rc}")
+    sw_walk.launches += 1
+    return out
+
+
+#: kernel launches on CUDA tensors (the CPU path does not count)
+sw_walk.launches = 0
+
+
+def decode_walk(rows: np.ndarray) -> dict[str, np.ndarray]:
+    """`sw_walk` rows (on the host) -> their header fields by name."""
+    return {"first_db": rows[:, 0], "runs": rows[:, 1], "flags": rows[:, 2],
+            "mismatches": rows[:, 3], "edit": rows[:, 4], "norm": rows[:, 5],
+            "log_prob": np.ascontiguousarray(rows[:, 6:8]).view(
+                np.float64)[:, 0]}
+
+
+def walk_cigar(row: np.ndarray) -> str:
+    """One `sw_walk` row's runs as a CIGAR string."""
+    runs = row[WALK_HDR:WALK_HDR + row[1]]
+    return "".join(f"{r >> 2}{WALK_OPS[r & 3]}" for r in runs.tolist())
 
 
 # ---------------------------------------------------------------------------

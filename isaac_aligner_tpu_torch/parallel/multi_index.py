@@ -207,6 +207,10 @@ class MultiIndexAligner(_GroupsMixin):
     def sw_pairs(self) -> int:
         return self._summed("sw_pairs")
 
+    @property
+    def sw_accepted(self) -> int:
+        return self._summed("sw_accepted")
+
     def _dispatch_all(self, batch: ReadBatch) -> list:
         """Launch every group's device program before fetching any."""
         for a in self.aligners:
@@ -333,6 +337,10 @@ class MultiIndexPairedAligner(_GroupsMixin):
     @property
     def sw_pairs(self) -> int:
         return self._summed("sw_pairs")
+
+    @property
+    def sw_accepted(self) -> int:
+        return self._summed("sw_accepted")
 
     @property
     def rescue_rows(self) -> int:

@@ -108,6 +108,109 @@ def _reads_at(rng: np.random.Generator, codes: np.ndarray,
     return reads, indel
 
 
+def sw_walk_pairs(rng: np.random.Generator, n: int, l: int,
+                  offsets=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(query uint8 [n, l], window uint8 [n, l + 15], qualities uint8
+    [n, l]) for the banded SW and its traceback walk: windows of random
+    codes with 2% N; each query copies its window from a random band offset
+    (or from `offsets` in turn), two thirds of them with a 1-8 bp insertion
+    or deletion at least 10 bases from either end (for l >= 30), then 1%
+    substitutions and 2% N; qualities 2-41."""
+    w = l + 15
+    db = rng.integers(0, 4, (n, w)).astype(np.uint8)
+    db[rng.random(db.shape) < 0.02] = 4
+    off = (rng.integers(0, 16, n) if offsets is None
+           else np.resize(np.asarray(offsets), n))
+    q = np.empty((n, l), np.uint8)
+    for k in range(n):
+        # past the window's end the read runs on into random bases
+        src = np.concatenate([db[k, off[k]:], rng.integers(0, 4, 8)])
+        kind = int(rng.integers(0, 3)) if l >= 30 else 0
+        ln = int(rng.integers(1, 9))
+        j = int(rng.integers(10, l - 10)) if kind else 0
+        if kind == 1:                 # insertion of ln random bases
+            row = np.concatenate([src[:j], rng.integers(0, 4, ln), src[j:]])
+        elif kind == 2:               # deletion of ln window bases
+            row = np.concatenate([src[:j], src[j + ln:]])
+        else:
+            row = src
+        q[k] = row[:l]
+    sub = rng.random(q.shape) < 0.01
+    q = np.where(sub, rng.integers(0, 4, q.shape), q).astype(np.uint8)
+    q[rng.random(q.shape) < 0.02] = 4
+    quals = rng.integers(2, 42, (n, l)).astype(np.uint8)
+    return q, db, quals
+
+
+def worst_case_walk_tb(l: int) -> np.ndarray:
+    """Packed traceback codes [ceil(l/5), 16] (`ops.sw.pack_tb`) whose walk
+    from (l-1, 15) changes op at every step: M and D down the band to d = 0,
+    then I and D in turn to the first row; ~2l runs, against the 2l + 15
+    that `ops.sw.walk_runs` allows."""
+    from .ops import sw
+
+    codes = np.zeros((l, sw.BAND), np.int32)
+    i, d, state, down = l - 1, sw.BAND - 1, 0, True
+    while i >= 0:
+        if state == 0:                        # G: to E, or to F at d = 0
+            nxt = 1 if d > 0 else 2
+            codes[i, d] |= nxt
+            down = down and nxt == 1
+            i -= 1
+        elif state == 1:                      # E: back to G, or to F
+            nxt = 0 if down else 2
+            codes[i, d] |= nxt << 2
+            d -= 1
+        else:                                 # F: to E
+            nxt = 1
+            codes[i, d] |= nxt << 4
+            i -= 1
+            d += 1
+        state = nxt
+    return sw.pack_tb(codes)
+
+
+def polish_batch(rng: np.random.Generator, genome: Genome, n: int,
+                 read_len: int = 100, trigger: int = 5):
+    """A paired batch as the gapped polish finds it after the pair step:
+    `res` with each end's ("_1", "_2") aligned, start (the read's source,
+    as an ungapped placement), reverse, mismatches (of that placement, or
+    trigger + 1 on a quarter of the rows, so that some gapped results lose),
+    edit_distance, log_prob (float32; 0 or -1000 on some rows), others_sum,
+    log_scale, frag_score, mapq and cigar (a clip CIGAR on a few rows, which the
+    polish passes over), in the dtypes the aligner gives them; half the
+    reads carry a 1-8 bp indel.  Returns (res, {suffix: (bases, quals)})."""
+    res: dict = {}
+    ends = {}
+    for sfx in ("_1", "_2"):
+        sim = make_reads(rng, genome.codes, n, read_len, indel_frac=0.5)
+        fwd = np.where(sim.reverse[:, None], _revcomp(sim.bases), sim.bases)
+        ref = genome.codes[sim.starts[:, None] + np.arange(read_len)]
+        mm = (fwd != ref).sum(axis=1).astype(np.int32)
+        mm[rng.random(n) < 0.25] = trigger + 1
+        lp = (-3.5 * mm - rng.random(n)).astype(np.float32)
+        lp[rng.random(n) < 0.1] = 0.0
+        lp[rng.random(n) < 0.1] = -1000.0
+        cigar = [None] * n
+        for r in rng.choice(n, 4, replace=False):
+            cigar[r] = f"{read_len - 5}M5S"
+        res.update({
+            "aligned" + sfx: rng.random(n) < 0.95,
+            "start" + sfx: sim.starts.astype(np.int32),
+            "reverse" + sfx: sim.reverse,
+            "mismatches" + sfx: mm,
+            "edit_distance" + sfx: mm.copy(),
+            "log_prob" + sfx: lp,
+            "others_sum" + sfx: (rng.random(n) * 1e-3).astype(np.float32),
+            "log_scale" + sfx: rng.uniform(-2, 2, n).astype(np.float32),
+            "frag_score" + sfx: rng.integers(0, 60, n).astype(np.int32),
+            "mapq" + sfx: rng.integers(0, 61, n).astype(np.int32),
+            "cigar" + sfx: cigar})
+        ends[sfx] = (sim.bases,
+                     rng.integers(2, 42, sim.bases.shape).astype(np.uint8))
+    return res, ends
+
+
 def planted_kmers(rng: np.random.Generator, n: int, k: int) -> tuple:
     """Up to `n` unique random k-mers as unbiased uint32 word planes (most
     significant first, 16 bases a word) where every other one is a

@@ -15,8 +15,8 @@ With --devices N (> 1; on cpu, N entries of the CPU) the single process
 runs the SPMD drivers over an N-device mesh and each of the two over its
 own N-device local mesh.  Both processes may share one card.  The
 coordinator's port is taken from a free socket.  Prints one JSON line per
-process (its stage split, its banded_sw launches and the pairs they
-aligned) and a last JSON line with the result; exits non-zero if a
+process (its stage split, its banded_sw and sw_walk launches and the
+pairs they aligned) and a last JSON line with the result; exits non-zero if a
 process fails or the outputs differ.
 """
 from __future__ import annotations
@@ -88,6 +88,7 @@ def child_main(args) -> None:
     print(json.dumps({"process": pid, "align_seconds": ms["align_seconds"],
                       "stage_seconds": ms["stage_seconds"],
                       "launches": sw.banded_sw.launches,
+                      "walk_launches": sw.sw_walk.launches,
                       "sw_pairs": ms["device_work"]["sw_pairs"]}), flush=True)
 
 

@@ -146,6 +146,151 @@ def test_banded_sw_uint8_inputs_and_report(cuda_device):
     print(f"\nbanded_sw build: {seconds:.1f} s\n{report}")
 
 
+def _walk_on(dev, q, db, ql, gs, g=None, tb=None):
+    """(kernel rows, plain rows) of sw_walk on the same CUDA tensors, after
+    banded_sw on them (or the given gfin and tb); one kernel launch."""
+    qd, dbd, qld = (torch.from_numpy(x).to(dev) for x in (q, db, ql))
+    if g is None:
+        gd, tbd = sw.banded_sw(qd, dbd, gs.sw_scores())
+    else:
+        gd, tbd = torch.from_numpy(g).to(dev), torch.from_numpy(tb).to(dev)
+    from isaac_aligner_tpu_torch.align import quality
+
+    args = (gd, tbd, qd, dbd, qld, *quality.log_tables_f64(dev), gs.norms())
+    before = sw.sw_walk.launches
+    got = sw.sw_walk(*args)
+    torch.cuda.synchronize()
+    assert sw.sw_walk.launches == before + 1
+    want = sw.sw_walk_torch(*args)
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+def _assert_walks_equal(got, want):
+    """Row for row, the log-probability's two words included (bit for
+    bit)."""
+    bad = np.nonzero((got != want).any(axis=1))[0]
+    assert bad.size == 0, (bad[:8], got[bad[:2], :12], want[bad[:2], :12])
+
+
+# the polish's launch sizes (~1,300 pairs a call on E. coli, ~2,400 on the
+# GRCh38 cut, at 150 bp), ragged warps and blocks, and the longest query
+WALK_SHAPES = ([(1_300, 150), (2_400, 150), (1_000, 100), (1_000, 151)]
+               + [(n, 150) for n in (1, 3, 5)] + [(64, 1), (64, 29),
+                                                  (8, sw.MAX_LEN)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", ["bwa", "eland"])
+@pytest.mark.parametrize("n,l", WALK_SHAPES)
+def test_sw_walk_kernel_equals_plain(cuda_device, n, l, gs):
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.align import gapped
+
+    scoring = {"bwa": gapped.BWA, "eland": gapped.ELAND}[gs]
+    q, db, ql = synthetic.sw_walk_pairs(np.random.default_rng(n + l), n, l)
+    got, want = _walk_on(cuda_device, q, db, ql, scoring)
+    _assert_walks_equal(got, want)
+    if n >= 1_000:
+        gapped_rows = (want[:, 2] & sw.WALK_GAPPED) != 0
+        assert 0.3 < gapped_rows.mean() < 0.9
+
+
+@pytest.mark.cuda
+def test_sw_walk_kernel_ties_band_edges_and_bad_rows(cuda_device):
+    """gfin ties (numpy's first largest), exits at d = 0 and 15, a quality
+    past the tables and a walk leaving the band (both flagged bad, the row
+    zero but for its flags), and a traceback built to the most runs."""
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.align import gapped, quality
+
+    gs = gapped.BWA
+    l = 150
+    q, db, ql = synthetic.sw_walk_pairs(np.random.default_rng(1), 900, l,
+                                        offsets=[0, sw.BAND - 1])
+    g, tb = sw.banded_sw_numpy_batch(q.astype(np.int32), db.astype(np.int32),
+                                     gs.sw_scores())
+    exit_d = g.argmax(axis=1)
+    assert (exit_d[0:600:2] == 0).mean() > 0.3
+    assert (exit_d[1:600:2] == sw.BAND - 1).mean() > 0.3
+    g = g.copy()
+    g[600:700] = 0.0                            # every d ties: exit 0
+    g[700:800] = -90.0
+    g[700:800, 4] = g[700:800, 11] = -1.0       # exit 4
+    tb = tb.copy()
+    tb[800:850] = synthetic.worst_case_walk_tb(l)
+    g[800:850] = 0.0
+    g[800:850, sw.BAND - 1] = 1.0
+    got, want = _walk_on(cuda_device, q, db, ql, gs, g, tb)
+    _assert_walks_equal(got, want)
+    assert (got[800:850, 1] > 2 * l - 10).all()
+    assert (got[:, 1] <= sw.walk_runs(l)).all()
+
+    # a quality past the tables on gapped rows
+    k = np.nonzero(want[:800, 2] == sw.WALK_GAPPED)[0][:5]
+    ql = ql.copy()
+    ql[k] = quality.MAX_Q
+    # a walk that leaves the band: G at (l-1, 0) steps to E, which steps
+    # to d = -1 (banded_sw never writes this code: E is NEG at d = 0)
+    tb[850] = 0
+    tb[850, (l - 1) // sw.TB_PACK, 0] = 1 << (6 * ((l - 1) % sw.TB_PACK))
+    g[850] = 0.0
+    got2, _ = _walk_on(cuda_device, q, db, ql, gs, g, tb)
+    bad = np.r_[k, 850]
+    assert (got2[bad, 2] == sw.WALK_BAD).all()
+    assert not np.delete(got2[bad], 2, axis=1).any()
+    keep = np.setdiff1d(np.arange(900), bad)
+    _assert_walks_equal(got2[keep], want[keep])
+
+
+@pytest.mark.cuda
+def test_polish_gapped_card_equals_cpu(cuda_device, monkeypatch):
+    """polish_gapped on the card leaves the same res as on the CPU, on both
+    ends of a paired batch (cigar, start, mismatches, edit distance,
+    float64-derived log_prob, mapq and frag_score) with the same
+    sw_accepted; one sw_walk launch per banded_sw launch, and no per-pair
+    Python walk or rescore."""
+    import copy
+    import types
+
+    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch.align import gapped
+    from isaac_aligner_tpu_torch.align.pipeline import AlignConfig
+
+    rng = np.random.default_rng(11)
+    genome = synthetic.make_genome(rng, 300_000, families=((600, 20, 0.02),),
+                                   n_island=(150_000, 500))
+    index = types.SimpleNamespace(genome=genome)
+    cfg = AlignConfig(seed_len=32, seed_offsets=(0,))
+    res, ends = synthetic.polish_batch(rng, genome, 4_096, read_len=150)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        r = copy.deepcopy(res)
+        tally = types.SimpleNamespace(sw_accepted=0)
+        launches = (sw.banded_sw.launches, sw.sw_walk.launches)
+        with monkeypatch.context() as m:
+            if dev != "cpu":
+                def host_walk(*a, **k):
+                    raise AssertionError("per-pair host walk on the card")
+                m.setattr(sw, "traceback", host_walk)
+                m.setattr(sw, "_walk_rescore", host_walk)
+                m.setattr(gapped, "rescore_cigar", host_walk)
+            pairs = sum(gapped.polish_gapped(index, cfg, r, bases, dev, sfx,
+                                             quals=quals, tally=tally)
+                        for sfx, (bases, quals) in ends.items())
+        out[str(dev)] = (r, pairs, tally.sw_accepted,
+                         sw.banded_sw.launches - launches[0],
+                         sw.sw_walk.launches - launches[1])
+    (cpu, p_c, a_c, b_c, w_c), (card, p_g, a_g, b_g, w_g) = out.values()
+    assert (p_g, a_g) == (p_c, a_c) and 0 < a_c < p_c
+    assert (b_c, w_c) == (0, 0) and b_g == w_g == 2
+    assert cpu.keys() == card.keys()
+    for key in cpu:
+        if isinstance(cpu[key], list):
+            assert cpu[key] == card[key], key
+        else:
+            np.testing.assert_array_equal(cpu[key], card[key], err_msg=key)
+
+
 @pytest.mark.cuda
 def test_paired_aligner_card_equals_cpu(cuda_device):
     """The paired library path on the card against the CPU: TLS learned
@@ -173,12 +318,14 @@ def test_paired_aligner_card_equals_cpu(cuda_device):
     for dev in (cuda_device, "cpu"):
         al = PairedAligner.create(index, read_len=100, device=dev)
         tls = al.learn_tls([batches()])
-        before = sw.banded_sw.launches
+        before = sw.banded_sw.launches, sw.sw_walk.launches
         recs = al.align_to_sam(*batches())
-        out.append((tls, recs, sw.banded_sw.launches - before))
-    (tls_g, gpu, n_g), (tls_c, cpu, n_c) = out
+        out.append((tls, recs, sw.banded_sw.launches - before[0],
+                    sw.sw_walk.launches - before[1]))
+    (tls_g, gpu, n_g, w_g), (tls_c, cpu, n_c, w_c) = out
     assert tls_g == tls_c and {tls_g.best0, tls_g.best1} == {1, 6}
     assert n_g > 0 and n_c == 0
+    assert w_g == n_g and w_c == 0
 
     def core(r):
         return (r.qname, r.flag, r.pos, r.cigar, r.tags.get("NM"), r.rnext,

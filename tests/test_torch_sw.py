@@ -7,11 +7,15 @@ CUDA kernel is held against the plain version on the card
 (tests/test_torch_cuda.py).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from isaac_aligner_tpu.ops import sw as jsw
+from isaac_aligner_tpu_torch import synthetic
+from isaac_aligner_tpu_torch.align import gapped, quality
 from isaac_aligner_tpu_torch.ops import sw
 
 
@@ -122,3 +126,166 @@ def test_unpack_tb_round_trip():
     rng = np.random.default_rng(9)
     rows = rng.integers(0, 64, (23, sw.BAND)).astype(np.int32)
     np.testing.assert_array_equal(sw.unpack_tb(sw.pack_tb(rows), 23), rows)
+
+
+# ---------------------------------------------------------------------------
+# sw_walk: the traceback walk and rescore
+# ---------------------------------------------------------------------------
+
+GAPS = {"bwa": gapped.BWA, "eland": gapped.ELAND}
+
+
+def _walk_inputs(n, l, gs, seed, offsets=None):
+    rng = np.random.default_rng(seed)
+    q, db, ql = synthetic.sw_walk_pairs(rng, n, l, offsets)
+    g, tb = sw.banded_sw_numpy_batch(q.astype(np.int32), db.astype(np.int32),
+                                     gs.sw_scores())
+    return g, tb, q, db, ql
+
+
+def _sw_walk(g, tb, q, db, ql, gs):
+    """sw.sw_walk on CPU tensors of these arrays, with the float64
+    quality tables and gs's normalized scores, as polish_gapped calls it."""
+    return sw.sw_walk(*(torch.from_numpy(x) for x in (g, tb, q, db, ql)),
+                      *quality.log_tables_f64("cpu"), gs.norms()).numpy()
+
+
+def _check_walk(g, tb, q, db, ql, gs):
+    """The plain sw_walk equals the host oracle (traceback from numpy's
+    argmax, ops_to_cigar, rescore_cigar over the window) field for field,
+    the log-probability with ==; runs zero past the last."""
+    out = _sw_walk(g, tb, q, db, ql, gs)
+    n, l = q.shape
+    assert out.shape == (n, sw.WALK_HDR + sw.walk_runs(l))
+    w = sw.decode_walk(out)
+    for k in range(n):
+        ops, first_db = sw.traceback(tb[k], int(np.argmax(g[k])), l)
+        cigar = sw.ops_to_cigar(ops)
+        is_gapped = any(op != "M" for _, op in cigar)
+        assert w["first_db"][k] == first_db
+        assert w["runs"][k] == len(cigar)
+        assert sw.walk_cigar(out[k]) == "".join(f"{n}{op}" for n, op in cigar)
+        assert not out[k, sw.WALK_HDR + len(cigar):].any()
+        assert w["flags"][k] == (sw.WALK_GAPPED if is_gapped else 0)
+        want = (gapped.rescore_cigar(db[k], first_db, q[k], ql[k], cigar, gs)
+                if is_gapped else (0.0, 0, 0, 0))
+        got = (w["log_prob"][k], w["mismatches"][k], w["edit"][k],
+               w["norm"][k])
+        assert got == want, (k, got, want)
+    return out, w
+
+
+@pytest.mark.parametrize("gs", list(GAPS), ids=list(GAPS))
+@pytest.mark.parametrize("l", [100, 150, 151])
+def test_sw_walk_plain_equals_host_oracle(l, gs):
+    g, tb, q, db, ql = _walk_inputs(48, l, GAPS[gs], seed=l)
+    _out, w = _check_walk(g, tb, q, db, ql, GAPS[gs])
+    gapped_rows = (w["flags"] & sw.WALK_GAPPED) != 0
+    assert 0 < gapped_rows.sum() < len(q)       # gapped and all-M walks
+    assert (q == 4).any() and (db == 4).any()
+
+
+def test_sw_walk_gfin_ties_take_the_first_largest():
+    gs = gapped.BWA
+    g, tb, q, db, ql = _walk_inputs(12, 100, gs, seed=7)
+    g = g.copy()
+    g[0::3] = 0.0                               # every d ties: exit 0
+    g[1::3] = -50.0
+    g[1::3, 4] = g[1::3, 11] = -3.0             # ties at 4 and 11: exit 4
+    _check_walk(g, tb, q, db, ql, gs)
+
+
+@pytest.mark.parametrize("gs", list(GAPS), ids=list(GAPS))
+def test_sw_walk_band_edges(gs):
+    """Near-matches at band offset 0 and 15: walks exit at d = 0 and 15."""
+    g, tb, q, db, ql = _walk_inputs(40, 100, GAPS[gs], seed=15,
+                                    offsets=[0, sw.BAND - 1])
+    exit_d = g.argmax(axis=1)
+    assert (exit_d[0::2] == 0).any() and (exit_d[1::2] == sw.BAND - 1).any()
+    _check_walk(g, tb, q, db, ql, GAPS[gs])
+
+
+def test_sw_walk_worst_case_tb_fits_the_run_buffer():
+    gs = gapped.BWA
+    l = 100
+    _g, _tb, q, db, ql = _walk_inputs(2, l, gs, seed=3)
+    tb = np.stack([synthetic.worst_case_walk_tb(l)] * 2)
+    g = np.zeros((2, sw.BAND), np.float32)
+    g[:, sw.BAND - 1] = 1.0
+    _out, w = _check_walk(g, tb, q, db, ql, gs)
+    assert (w["runs"] > 2 * l - 10).all()
+    assert (w["runs"] <= sw.walk_runs(l)).all()
+
+
+def test_sw_walk_quality_past_the_tables_is_bad():
+    gs = gapped.BWA
+    g, tb, q, db, ql = _walk_inputs(24, 100, gs, seed=4)
+    out = _sw_walk(g, tb, q, db, ql, gs)
+    k = int(np.nonzero(out[:, 2] == sw.WALK_GAPPED)[0][0])
+    ql = ql.copy()
+    ql[k] = quality.MAX_Q + 20
+    bad = _sw_walk(g, tb, q, db, ql, gs)
+    assert bad[k, 2] == sw.WALK_BAD and not np.delete(bad[k], 2).any()
+    assert np.array_equal(np.delete(bad, k, 0), np.delete(out, k, 0))
+
+
+def test_sw_walk_checks_inputs():
+    gs = gapped.BWA
+    g, tb, q, db, ql = (torch.from_numpy(x)
+                        for x in _walk_inputs(4, 30, gs, seed=1))
+    lm, lmm = quality.log_tables_f64("cpu")
+    norms = gs.norms()
+    before = sw.sw_walk.launches
+    sw.sw_walk(g, tb, q, db, ql, lm, lmm, norms)
+    assert sw.sw_walk.launches == before
+    with pytest.raises(ValueError, match="query"):
+        sw.sw_walk(g, tb, q.to(torch.int32), db, ql, lm, lmm, norms)
+    with pytest.raises(ValueError, match="window"):
+        sw.sw_walk(g, tb, q, db[:, :40].contiguous(), ql, lm, lmm, norms)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw.sw_walk(g, tb, q, db, ql.t().contiguous().t(), lm, lmm, norms)
+    with pytest.raises(ValueError, match="log_match"):
+        sw.sw_walk(g, tb, q, db, ql, lm.float(), lmm, norms)
+    with pytest.raises(ValueError, match="log_mismatch"):
+        sw.sw_walk(g, tb, q, db, ql, lm, lmm[:50], norms)
+    with pytest.raises(ValueError, match="norms"):
+        sw.sw_walk(g, tb, q, db, ql, lm, lmm, norms[:3])
+
+
+@pytest.mark.parametrize("gs", list(GAPS), ids=list(GAPS))
+def test_polish_gapped_equals_jax(gs):
+    """The port's polish (walks, rescore and acceptance through sw_walk,
+    vectorized) leaves the same res as the JAX package's per-pair loop, on
+    both ends of a paired batch; sw_accepted counts the rows it changed."""
+    import copy
+    import types
+
+    from isaac_aligner_tpu.align import gapped as jgapped
+    from isaac_aligner_tpu_torch.align.pipeline import AlignConfig
+
+    rng = np.random.default_rng(11)
+    genome = synthetic.make_genome(rng, 60_000, families=((600, 8, 0.02),),
+                                   n_island=(30_000, 300))
+    index = types.SimpleNamespace(genome=genome)
+    cfg = AlignConfig(seed_len=32, seed_offsets=(0,))
+    res, ends = synthetic.polish_batch(rng, genome, 192)
+    ours, theirs = copy.deepcopy(res), copy.deepcopy(res)
+    pairs = 0
+    tally = types.SimpleNamespace(sw_accepted=0)
+    for sfx, (bases, quals) in ends.items():
+        pairs += gapped.polish_gapped(index, cfg, ours, bases, "cpu", sfx,
+                                      quals=quals, gs=GAPS[gs], tally=tally)
+        jgapped.polish_gapped(index, cfg, theirs, bases, sfx, quals=quals,
+                              gs=jgapped.GapScoring(**dataclasses.asdict(
+                                  GAPS[gs])))
+    assert ours.keys() == theirs.keys()
+    for key in ours:
+        if isinstance(ours[key], list):
+            assert ours[key] == theirs[key], key
+        else:
+            assert ours[key].dtype == theirs[key].dtype, key
+            np.testing.assert_array_equal(ours[key], theirs[key], err_msg=key)
+    changed = sum(a != b for sfx in ends for a, b in
+                  zip(res["cigar" + sfx], ours["cigar" + sfx]))
+    assert tally.sw_accepted == changed
+    assert 0 < changed < pairs
