@@ -1417,37 +1417,29 @@ def phase_seed_options(args, genome, sim, sp, card: str, tmp: Path) -> int:
     return launches
 
 
-def spmd_diff(want: dict, got: dict) -> tuple[list, int]:
-    """(result fields of two drivers' align_batch_arrays that differ, rows
-    set aside): every field the single-device result has, with the
-    candidate grids compared in their valid slots (the padding follows the
-    concatenated hit lists) and the device clip fields off the rows
-    rescued in the program (the single-device driver re-clips those on
-    the host).  An end's fields are also set aside on the rows where the
-    single-device driver applied its pre-rescue device clip to a
-    disjoined row that the rescue moved (ROADMAP §C4, a reference fault
-    that the single-device path keeps for byte-equality)."""
+def spmd_diff(want: dict, got: dict) -> list:
+    """Result fields of two drivers' align_batch_arrays that differ: every
+    field the single-device result has, with the candidate grids compared
+    in their valid slots (the padding follows the concatenated hit lists)
+    and the device clip fields off the rows rescued in the program (the
+    single-device driver re-clips those on the host, ROADMAP §C8)."""
     bad = [k for k in want if k not in got]
-    stale = {sfx: got["rescued" + sfx] & want["sa_do" + sfx].astype(bool)
-             for sfx in ("_1", "_2") if "rescued" + sfx in got}
     for k in sorted(set(want) & set(got)):
         a, c = want[k], got[k]
         sfx = k[len(k.rstrip("_12")):]
         if isinstance(a, list):     # CIGARs
-            rows = stale.get(sfx, np.zeros(len(a), bool))
-            if len(a) != len(c) or any(x != y for x, y, s in zip(a, c, rows)
-                                       if not s):
+            if a != c:
                 bad.append(k)
             continue
         if not isinstance(a, np.ndarray) or a.ndim == 0:
             if a != c:
                 bad.append(k)
             continue
-        keep = ~stale.get(sfx, np.zeros(a.shape[0], bool))
+        keep = np.ones(a.shape[0], bool)
         if k.startswith("cand_") and not k.startswith("cand_valid"):
             keep = want["cand_valid" + sfx] & got["cand_valid" + sfx]
         elif k.startswith("sa_") and "rescued" + sfx in got:
-            keep = keep & ~got["rescued" + sfx]
+            keep = ~got["rescued" + sfx]
         if keep.ndim < a.ndim:
             keep = np.broadcast_to(
                 keep.reshape(keep.shape + (1,) * (a.ndim - keep.ndim)),
@@ -1455,7 +1447,7 @@ def spmd_diff(want: dict, got: dict) -> tuple[list, int]:
         if a.shape != c.shape or not np.array_equal(np.where(keep, a, 0),
                                                     np.where(keep, c, 0)):
             bad.append(k)
-    return bad, int(sum(v.sum() for v in stale.values()))
+    return bad
 
 
 def timed_batch(al, inputs) -> tuple[dict, float, float]:
@@ -1525,7 +1517,7 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
             got = al.align_batch_arrays(*inputs)
             launches += path_launches('the sharded drivers')
             pairs_sw += al.sw_pairs
-            bad, n_stale = spmd_diff(want, got)
+            bad = spmd_diff(want, got)
             mode = f"({data}, {shard}){' genome-sharded' if gs else ''}"
             if bad:
                 raise AssertionError(f"{what} sharded {mode} != single "
@@ -1534,10 +1526,8 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
                 raise AssertionError(f"{what} {mode}: rescue dropped "
                                      f"{int(got['rescue_dropped'])} rows")
             _res, wall, disp = timed_batch(al, inputs)
-            stale_note = (f" ({n_stale} stale-clip row ends set aside, "
-                          f"§C4)" if paired else "")
             rows.append(f"{what} {mode}: {len(want)} fields equal"
-                        f"{stale_note}, batch {wall:.1f} ms, dispatch "
+                        f", batch {wall:.1f} ms, dispatch "
                         f"{disp:.1f} ms")
             del al
     torch.cuda.empty_cache()

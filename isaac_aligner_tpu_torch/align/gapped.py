@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..index.build import SeedIndex
+from ..io.bam import parse_cigar
 from ..ops import sw
 from ..utils import tracing
 from . import quality
@@ -203,12 +204,57 @@ def makes_sense_to_gap_align(q: np.ndarray, db: np.ndarray,
     return int((counts >= sufficient).sum()) >= 2
 
 
+def _soft_clip_query(cigar: list[tuple[int, str]], t: int, at_end: bool):
+    """Soft-clip the first (or, `at_end`, the last) `t` query bases of a
+    walk's CIGAR (M, I, D runs); a gap left at the clip's edge goes with
+    it (an insertion into the clip).  Returns (CIGAR, reference bases the
+    clip took from the alignment's side, offsets from the clipped end of
+    the inserted bases it took), the start moving by the second when the
+    clip leads."""
+    ops = list(reversed(cigar)) if at_end else list(cigar)
+    ref, left, k, q = 0, t, 0, 0
+    ins: list[int] = []
+    while left > 0:
+        n, op = ops[k]
+        if op == "D":
+            ref += n
+            k += 1
+            continue
+        use = min(n, left)
+        left -= use
+        if op == "M":
+            ref += use
+        else:
+            ins.extend(range(q, q + use))
+        q += use
+        if use < n:
+            ops[k] = (n - use, op)
+        else:
+            k += 1
+    rest = ops[k:]
+    while rest and rest[0][1] in "ID":
+        n, op = rest.pop(0)
+        if op == "I":
+            ins.extend(range(q, q + n))
+            q += n
+            t += n
+        else:
+            ref += n
+    out = [(t, "S")] + rest
+    return (out[::-1] if at_end else out), ref, ins
+
+
+def _m_bases(cigar) -> int:
+    return sum(n for n, op in cigar if op == "M")
+
+
 def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
                   bases: np.ndarray, device, suffix: str = "",
                   trigger: int = MISMATCHES_CUTOFF,
                   quals: np.ndarray | None = None,
                   gs: GapScoring = BWA, avoid_sw: bool = False, *,
-                  tally) -> int:
+                  tally, masked: np.ndarray | None = None,
+                  accepted: list | None = None) -> int:
     """Re-align triggered rows with banded SW on `device`; mutate `res`.
 
     res must carry (with `suffix`): aligned, start, reverse, mismatches,
@@ -221,6 +267,19 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
     `sw.sw_walk` walks and rescores every pair where `banded_sw` left its
     outputs (on a card, in a kernel), so the host only takes the accepted
     rows' results.
+
+    `masked` (per row, the masked tail whose soft clip
+    `clippers.apply_masked_tail_cigar` wrote as its CIGAR, 0 elsewhere)
+    lets such a row through: its whole oriented read
+    goes to the kernel from its unclipped start, the masked bases N there,
+    and a walk it takes keeps the masked bases soft-clipped and is taken by
+    the same rule when a gap stays in the aligned part.  Its fields are
+    the walk's less what the clip took (`rescore_cigar`'s of the clipped
+    CIGAR: the masked bases are N, so none was a mismatch, each an edit,
+    and a soft clip's log-probability is its bases' match terms, which an
+    insertion's bases lacked).  Every other row with a CIGAR is left as
+    it is.  `accepted`, when given, gets the rows whose alignment was
+    replaced.
     """
     s = suffix
     genome = index.genome
@@ -240,9 +299,14 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
     metas = []
     with tracing.span("polish.gapped.windows"):
         for r in rows:
+            t = 0
             if res[key][r] is not None:
-                continue  # row already carries a clip cigar (masked tail)
+                t = int(masked[r]) if masked is not None else 0
+                if t <= 0:
+                    continue  # another clip (contig end) stays as it is
             start = int(res["start" + s][r])
+            if t and res["reverse" + s][r]:
+                start -= t    # the masked tail's lead clip moved it
             contig = genome.contig_of(start)
             local = start - contig.offset
             fl = _flanks(local, read_len, contig.length)
@@ -262,13 +326,13 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
                 continue  # --avoid-smith-waterman: no gap evidence
             queries.append(q)
             dbs.append(db)
-            metas.append((int(r), win_start))
+            metas.append((int(r), win_start, t))
     if not metas:
         return 0
 
     if quals is None:
         quals = np.full_like(bases, 30)
-    rk, win_starts = (np.array(col, np.int64) for col in zip(*metas))
+    rk, win_starts, tk = (np.array(col, np.int64) for col in zip(*metas))
 
     with tracing.span("polish.gapped.kernel"):
         # oriented qualities, reversed with their reads
@@ -296,15 +360,43 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
         take = ((w["flags"] & sw.WALK_GAPPED) != 0) & (
             (norm_g < norm_u)
             | ((norm_g == norm_u) & (lp > res["log_prob" + s][rk])))
+        cigars = {kk: sw.walk_cigar(walks[kk])
+                  for kk in np.nonzero(take)[0].tolist()}
+        starts = win_starts + w["first_db"]
+        nmm_g, edit_g = w["mismatches"].copy(), w["edit"].copy()
+        lp = lp.copy()
+        for kk in np.nonzero(take & (tk > 0))[0].tolist():
+            r = int(rk[kk])
+            rev = bool(res["reverse" + s][r])
+            walk = parse_cigar(cigars[kk])
+            cigar, ref_cut, ins = _soft_clip_query(walk, int(tk[kk]),
+                                                   at_end=not rev)
+            if not any(op in "ID" for _n, op in cigar):
+                take[kk] = False   # the gap lay in the masked bases
+                continue
+            _o, gaps_w, _c, norm_w = cigar_stats(walk, gs)
+            _o, gaps_c, _c, norm_c = cigar_stats(cigar, gs)
+            norm_c = int(w["norm"][kk]) - (norm_w - norm_c)
+            ql = rq[kk][::-1] if not rev else rq[kk]
+            lp_c = float(lp[kk]) + float(
+                quality.LOG_MATCH_F64[ql[ins]].sum()) if ins else lp[kk]
+            if not (norm_c < norm_u[kk] or (norm_c == norm_u[kk] and lp_c
+                                            > res["log_prob" + s][r])):
+                take[kk] = False
+                continue
+            cigars[kk] = "".join(f"{n}{op}" for n, op in cigar)
+            starts[kk] += ref_cut if rev else 0
+            edit_g[kk] -= _m_bases(walk) - _m_bases(cigar) + gaps_w - gaps_c
+            lp[kk] = lp_c
         k = np.nonzero(take)[0]
         r = rk[k]
         lp = lp[k]
-        res["start" + s][r] = win_starts[k] + w["first_db"][k]
-        res["mismatches" + s][r] = w["mismatches"][k]
-        res["edit_distance" + s][r] = w["edit"][k]
+        res["start" + s][r] = starts[k]
+        res["mismatches" + s][r] = nmm_g[k]
+        res["edit_distance" + s][r] = edit_g[k]
         res["log_prob" + s][r] = lp
         for kk, rr in zip(k.tolist(), r.tolist()):
-            res[key][rr] = sw.walk_cigar(walks[kk])
+            res[key][rr] = cigars[kk]
         # re-derive the mapping score with the improved best lp against the
         # (ungapped) neighborhood mass, exported exp(-log_scale)-scaled
         if "others_sum" + s in res and k.size:
@@ -321,4 +413,6 @@ def polish_gapped(index: SeedIndex, cfg: AlignConfig, res: dict,
             if "frag_score" + s in res:
                 res["frag_score" + s][r] = score
     tally.sw_accepted += int(k.size)
+    if accepted is not None:
+        accepted.extend(r.tolist())
     return len(metas)

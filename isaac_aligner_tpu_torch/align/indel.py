@@ -40,15 +40,19 @@ def polish_simple_indels(index: SeedIndex, cfg: AlignConfig, res: dict,
                          trigger: int = 6,
                          quals: np.ndarray | None = None,
                          gs: GapScoring = BWA,
-                         max_gap: int = MAX_GAP) -> None:
+                         max_gap: int = MAX_GAP) -> np.ndarray:
     """Detect single long indels for rows still poorly aligned; mutate res.
 
     Runs after the banded-SW polish: rows whose best alignment still has
     > trigger mismatches and no gapped CIGAR are examined.  `max_gap` is
-    the reference --semialigned-gap-limit (0 disables).
+    the reference --semialigned-gap-limit (0 disables).  Returns the rows
+    it realigned (int64, ascending): their start, strand and CIGAR may
+    differ from what the pair step chose, so a paired caller works the
+    pair's fields out again (`PairedAligner._repair_pairs`).
     """
+    none = np.zeros(0, np.int64)
     if max_gap <= 0:
-        return
+        return none
     s = suffix
     aligned = res["aligned" + s]
     key = "cigar" + s
@@ -59,7 +63,8 @@ def polish_simple_indels(index: SeedIndex, cfg: AlignConfig, res: dict,
     cand_valid = res["cand_valid" + s]
     rows = np.nonzero(aligned & (res["mismatches" + s] > trigger))[0]
     if rows.size == 0:
-        return
+        return none
+    moved = []
     genome = index.genome.codes
     read_len = bases.shape[1]
     if quals is None:
@@ -140,6 +145,7 @@ def polish_simple_indels(index: SeedIndex, cfg: AlignConfig, res: dict,
         res["edit_distance" + s][r] = edit_g
         res["log_prob" + s][r] = lp
         res[key][r] = cigar_str
+        moved.append(int(r))
         if "others_sum" + s in res:
             rog = quality.rest_of_genome_correction(index.genome.total_length,
                                                     read_len)
@@ -151,3 +157,4 @@ def polish_simple_indels(index: SeedIndex, cfg: AlignConfig, res: dict,
                 res["mapq" + s][r] = min(score, cfg.mapq_cap)
             if "frag_score" + s in res:
                 res["frag_score" + s][r] = score
+    return np.asarray(moved, np.int64)

@@ -149,6 +149,16 @@ class Aligner:
     # gapped result replaced the ungapped one
     sw_pairs: int = 0
     sw_accepted: int = 0
+    # what the polish passes changed: ends quality-trimmed,
+    # semialigned-clipped, re-clipped on the host after a rescue moved them
+    # (pairs), overlap-clipped (pairs), realigned by the simple-indel
+    # aligner, and pairs whose fields a move of an end changed (pairs)
+    trimmed_ends: int = 0
+    semialigned_clipped: int = 0
+    reclipped: int = 0
+    overlap_clipped: int = 0
+    indel_moved: int = 0
+    indel_repaired: int = 0
 
     def ensure_uploaded(self) -> None:
         """Upload the index planes to the device if they are not there;
@@ -217,10 +227,13 @@ class Aligner:
             res = _fetch(out, self.device)
             with tracing.span("polish"):
                 with tracing.span("polish.clip"):
-                    total_trims = clippers.apply_quality_trim_masks(
-                        bases, quals, trims, res.pop("qtrim"))
-                    clippers.apply_masked_tail_cigar(res, "", total_trims,
-                                                     batch.read_len)
+                    with tracing.span("polish.clip.trim"):
+                        qtrim = res.pop("qtrim")
+                        self.trimmed_ends += int(np.count_nonzero(qtrim))
+                        total_trims = clippers.apply_quality_trim_masks(
+                            bases, quals, trims, qtrim)
+                        masked = clippers.apply_masked_tail_cigar(
+                            res, "", total_trims, batch.read_len)
                     clippers.clip_contig_ends(res, "", self.index.genome,
                                               batch.read_len)
                 with tracing.span("polish.gapped"):
@@ -228,17 +241,22 @@ class Aligner:
                         self.index, self.cfg, res, bases, self.device,
                         quals=quals, gs=self.gap_scoring,
                         trigger=self.gapped_mismatches,
-                        avoid_sw=self.avoid_smith_waterman, tally=self)
+                        avoid_sw=self.avoid_smith_waterman, tally=self,
+                        masked=masked)
                 with tracing.span("polish.indel"):
-                    polish_simple_indels(
+                    moved = polish_simple_indels(
                         self.index, self.cfg, res, bases, quals=quals,
                         gs=self.gap_scoring,
                         trigger=max(6, self.gapped_mismatches + 1),
                         max_gap=self.semialigned_gap_limit)
+                    self.indel_moved += int(moved.size)
                 if self.clip_semialigned:
-                    with tracing.span("polish.clip"):
-                        clippers.apply_semialigned_device(res, "",
-                                                          bases.shape[1])
+                    with tracing.span("polish.clip"), \
+                            tracing.span("polish.clip.semialigned"):
+                        self.semialigned_clipped += \
+                            clippers.apply_semialigned_device(
+                                res, "", bases.shape[1],
+                                self.index.genome.codes, bases)
         return res
 
     def _record_stats(self, batch: ReadBatch, res: dict) -> None:
@@ -365,6 +383,13 @@ class PairedAligner:
     # orphan rows scanned by rescue_shadows, and its calls
     rescue_rows: int = 0
     rescue_calls: int = 0
+    # the polish passes' counters, as Aligner's
+    trimmed_ends: int = 0
+    semialigned_clipped: int = 0
+    reclipped: int = 0
+    overlap_clipped: int = 0
+    indel_moved: int = 0
+    indel_repaired: int = 0
 
     ensure_uploaded = Aligner.ensure_uploaded
     release_device = Aligner.release_device
@@ -465,50 +490,130 @@ class PairedAligner:
         return res
 
     def _polish(self, res, m1, m2, trims, b1, b2) -> None:
-        """The host passes of `_finish`, each a child span of `polish`."""
-        with tracing.span("polish.clip"):
+        """The host passes of `_finish`, each a child span of `polish`.
+        Each pass works on the alignment the one before it kept: the
+        device semialigned clip only on ends still at the placement it was
+        computed for (a rescued end gets the host clip), and with the
+        simple-indel aligner on, the pair's fields follow an end that it or
+        the gapped polish placed anew."""
+        with tracing.span("polish.clip"), tracing.span("polish.clip.trim"):
+            qt1, qt2 = res.pop("qtrim_1"), res.pop("qtrim_2")
+            self.trimmed_ends += int(np.count_nonzero(qt1)
+                                     + np.count_nonzero(qt2))
             total1 = clippers.apply_quality_trim_masks(
-                m1.bases, m1.quals, trims[0], res.pop("qtrim_1"))
+                m1.bases, m1.quals, trims[0], qt1)
             total2 = clippers.apply_quality_trim_masks(
-                m2.bases, m2.quals, trims[1], res.pop("qtrim_2"))
+                m2.bases, m2.quals, trims[1], qt2)
         with tracing.span("polish.rescue"):
+            aligned_before = (res["aligned_1"].copy(), res["aligned_2"].copy())
             rescued1, rescued2 = self._apply_rescue(res, m1, m2)
         with tracing.span("polish.clip"):
-            clippers.apply_masked_tail_cigar(res, "_1", total1, b1.read_len)
-            clippers.apply_masked_tail_cigar(res, "_2", total2, b2.read_len)
+            with tracing.span("polish.clip.trim"):
+                masked = (clippers.apply_masked_tail_cigar(
+                              res, "_1", total1, b1.read_len),
+                          clippers.apply_masked_tail_cigar(
+                              res, "_2", total2, b2.read_len))
             clippers.clip_contig_ends(res, "_1", self.index.genome,
                                       b1.read_len)
             clippers.clip_contig_ends(res, "_2", self.index.genome,
                                       b2.read_len)
         gs = self.gap_scoring
         trig = self.gapped_mismatches
-        for sfx, m in (("_1", m1), ("_2", m2)):
+        # the rows the gapped polish realigned
+        gapped = []
+        for sfx, m, t in (("_1", m1, masked[0]), ("_2", m2, masked[1])):
             with tracing.span("polish.gapped"):
                 self.sw_pairs += polish_gapped(
                     self.index, self.cfg, res, m.bases, self.device, sfx,
                     quals=m.quals, gs=gs, trigger=trig,
-                    avoid_sw=self.avoid_smith_waterman, tally=self)
+                    avoid_sw=self.avoid_smith_waterman, tally=self,
+                    masked=t, accepted=gapped)
+        moved = []
         for sfx, m in (("_1", m1), ("_2", m2)):
             with tracing.span("polish.indel"):
-                polish_simple_indels(self.index, self.cfg, res, m.bases, sfx,
-                                     quals=m.quals, gs=gs,
-                                     trigger=max(6, trig + 1),
-                                     max_gap=self.semialigned_gap_limit)
+                moved.append(polish_simple_indels(
+                    self.index, self.cfg, res, m.bases, sfx, quals=m.quals,
+                    gs=gs, trigger=max(6, trig + 1),
+                    max_gap=self.semialigned_gap_limit))
+        self.indel_moved += int(moved[0].size + moved[1].size)
+        if self.semialigned_gap_limit > 0:
+            # the pair step's fields of every pair with an end that the
+            # gapped polish or the simple-indel aligner placed anew (with
+            # the simple-indel aligner off, they stay the pair step's, as
+            # in the JAX package)
+            with tracing.span("polish.indel"), \
+                    tracing.span("polish.indel.repair"):
+                rows = np.union1d(np.asarray(gapped, np.int64),
+                                  np.union1d(*moved))
+                if rows.size:
+                    self.indel_repaired += self._repair_pairs(res, rows,
+                                                              b1, b2)
         g_codes = self.index.genome.codes
         with tracing.span("polish.clip"):
             if self.clip_semialigned:
-                # the device clip covers rows aligned on the device; rescued
-                # shadows get the host pass
-                clippers.apply_semialigned_device(res, "_1", b1.read_len)
-                clippers.apply_semialigned_device(res, "_2", b2.read_len)
-                if rescued1.any():
-                    clippers.clip_semialigned(res, "_1", g_codes, m1.bases,
-                                              row_mask=rescued1)
-                if rescued2.any():
-                    clippers.clip_semialigned(res, "_2", g_codes, m2.bases,
-                                              row_mask=rescued2)
+                with tracing.span("polish.clip.semialigned"):
+                    self._clip_semialigned(res, g_codes, (m1, m2), (b1, b2),
+                                           (rescued1, rescued2),
+                                           aligned_before)
             if self.clip_overlapping:
-                clippers.clip_overlapping(res, m1, m2, g_codes)
+                with tracing.span("polish.clip.overlap"):
+                    self.overlap_clipped += clippers.clip_overlapping(
+                        res, m1, m2, g_codes)
+
+    def _clip_semialigned(self, res, g_codes, masked, batches, rescued,
+                          aligned_before) -> None:
+        """The semialigned clip of both ends: the device's where the end
+        kept the alignment it was computed for; the host pass on ends the
+        rescue placed (shadows, which the device saw unaligned, and
+        disjoined ends it moved: `reclipped`)."""
+        for e, (m, b, hit, was) in enumerate(
+                zip(masked, batches, rescued, aligned_before), 1):
+            sfx = f"_{e}"
+            moved = np.nonzero(hit)[0]
+            self.semialigned_clipped += clippers.apply_semialigned_device(
+                res, sfx, b.read_len, g_codes, m.bases, skip_rows=moved)
+            if moved.size:
+                self.reclipped += int(np.count_nonzero(was[moved]))
+                self.semialigned_clipped += clippers.clip_semialigned(
+                    res, sfx, g_codes, m.bases, row_mask=hit)
+
+    def _repair_pairs(self, res, rows, b1, b2) -> int:
+        """Pair resolution, proper flag and template length of `rows` from
+        their final placements, by the device pair step's rule
+        (`pairs.resolve_pairs`: each end's unclipped start and read length,
+        the batch's TLS model); a pair no longer resolved loses its
+        template score.  Returns the number of pairs whose fields
+        changed."""
+        s = self._batch_tls(b1).to_stats()
+        offs = self.index.genome.contig_offsets
+        p1, p2 = (res["start" + sfx][rows].astype(np.int64)
+                  - clippers.clip_spans([res["cigar" + sfx][i]
+                                         for i in rows.tolist()])[0]
+                  for sfx in ("_1", "_2"))
+        r1 = res["reverse_1"][rows].astype(bool)
+        r2 = res["reverse_2"][rows].astype(bool)
+        both = res["aligned_1"][rows].astype(bool) & \
+            res["aligned_2"][rows].astype(bool)
+        same = np.searchsorted(offs, p1, side="right") == \
+            np.searchsorted(offs, p2, side="right")
+        model = tls_mod.alignment_model(p1, r1, p2, r2)
+        length = tls_mod.template_length(p1, b1.read_len, p2, b2.read_len)
+        in_models = (model == s.best_models[0]) | (model == s.best_models[1])
+        resolved = both & same & in_models & \
+            (length <= s.max + tls_mod.TEMPLATE_LENGTH_THRESHOLD)
+        proper = resolved & np.asarray(s.nominal(model, length))
+        tlen = np.where(resolved, length, 0)
+        old = (res["pair_resolved"][rows].astype(bool),
+               res["proper_pair"][rows].astype(bool),
+               res["template_length"][rows].astype(np.int64))
+        changed = (old[0] != resolved) | (old[1] != proper) | \
+            (old[2] != tlen)
+        res["pair_resolved"][rows] = resolved
+        res["proper_pair"][rows] = proper
+        res["template_length"][rows] = tlen
+        res["template_score"][rows] = np.where(
+            resolved, res["template_score"][rows], -1)
+        return int(np.count_nonzero(changed))
 
     def _record_stats(self, b1: ReadBatch, b2: ReadBatch, res: dict) -> None:
         with tracing.collect(self.timings), tracing.span("stats"):

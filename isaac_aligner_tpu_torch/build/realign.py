@@ -20,7 +20,11 @@ reference's bounded shape (at most MAX_GAPS_AT_A_TIME gaps per choice).
 
 The port's own copy of the columnar path of
 `isaac_aligner_tpu/build/realign.py` (`realign_batch`,
-`_patch_mates_columnar` and their helpers), unchanged.  The record-list
+`_patch_mates_columnar` and their helpers), unchanged but for the
+template length the mate patch writes: from the leftmost aligned base of
+the pair to the rightmost (the JAX package ends it at the right end's
+last base, which a clipped right end can leave short of its mate's;
+ROADMAP section C).  The record-list
 `realign_records`, which the JAX package keeps as the test oracle of the
 columnar path, is not copied.
 """
@@ -489,11 +493,16 @@ def _patch_mates_columnar(fb, scope: np.ndarray) -> None:
         return
     fb.mate_pos[a] = fb.pos[b]
     fb.mate_pos[b] = fb.pos[a]
-    span_all = R.ref_span(fb.cigar_ops, fb.n_cigar)
-    a_left = fb.pos[a] <= fb.pos[b]
+    span_all = R.ref_span(fb.cigar_ops, fb.n_cigar).astype(np.int64)
+    # the template from the leftmost aligned base to the rightmost, as the
+    # records were made (storage.from_paired_result): a clipped end may
+    # stop short of its mate's end; on equal starts read 1 is positive
+    pa, pb = fb.pos[a].astype(np.int64), fb.pos[b].astype(np.int64)
+    a_is_1 = (fb.flag[a] & sam_mod.FLAG_READ1) != 0
+    a_left = (pa < pb) | ((pa == pb) & a_is_1)
     left = np.where(a_left, a, b)
     right = np.where(a_left, b, a)
-    span = (fb.pos[right].astype(np.int64) + span_all[right]) \
-        - fb.pos[left].astype(np.int64)
+    span = np.maximum(pa + span_all[a], pb + span_all[b]) \
+        - np.minimum(pa, pb)
     fb.tlen[left] = span.astype(np.int32)
     fb.tlen[right] = (-span).astype(np.int32)

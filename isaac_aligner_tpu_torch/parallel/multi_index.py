@@ -176,6 +176,16 @@ class _GroupsMixin:
     def _summed(self, name: str) -> int:
         return sum(getattr(a, name) for a in self.aligners)
 
+    # the polish passes' counters (Aligner), summed over the groups: each
+    # group polishes its own alignment of every read
+    trimmed_ends = property(lambda self: self._summed("trimmed_ends"))
+    semialigned_clipped = property(
+        lambda self: self._summed("semialigned_clipped"))
+    reclipped = property(lambda self: self._summed("reclipped"))
+    overlap_clipped = property(lambda self: self._summed("overlap_clipped"))
+    indel_moved = property(lambda self: self._summed("indel_moved"))
+    indel_repaired = property(lambda self: self._summed("indel_repaired"))
+
 
 @dataclasses.dataclass
 class MultiIndexAligner(_GroupsMixin):

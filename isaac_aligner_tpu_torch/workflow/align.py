@@ -901,11 +901,15 @@ class AlignWorkflow:
         t_host.update(aligner.timings)
         stats["stage_seconds"] = {k: round(v, 3) for k, v in t_host.items()}
         # device work of the host-driven passes: pairs sent to the banded
-        # SW kernel and those whose gapped result was taken, and (pairs)
-        # orphan rows scanned by the rescue
+        # SW kernel and those whose gapped result was taken, (pairs)
+        # orphan rows scanned by the rescue, and the ends and pairs the
+        # trim, clip and simple-indel passes changed
         stats["device_work"] = {k: getattr(aligner, k) for k in
                                 ("sw_pairs", "sw_accepted", "rescue_rows",
-                                 "rescue_calls")
+                                 "rescue_calls", "trimmed_ends",
+                                 "semialigned_clipped", "reclipped",
+                                 "overlap_clipped", "indel_moved",
+                                 "indel_repaired")
                                 if hasattr(aligner, k)}
         if groups is not None:
             # per contig group: its records, the device bytes of its planes

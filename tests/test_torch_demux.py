@@ -28,7 +28,8 @@ from isaac_aligner_tpu_torch.io.bam import read_bam
 from isaac_aligner_tpu_torch.workflow import align as wf
 from isaac_aligner_tpu_torch.workflow import per_barcode
 
-from test_torch_bcl import assert_outputs_equal
+from test_torch_bcl import assert_outputs_equal, output_files
+from test_torch_defaults import assert_outputs_equal_but_mended
 from test_torch_paired import pair_genome, write_pair_inputs
 
 BATCH = 64
@@ -219,8 +220,18 @@ def _qnames(bam: Path) -> list[str]:
 
 
 def test_fastq_barcode_workflow_equals_jax(ran):
+    """Byte-equal to the JAX workflow but for the pairs a fault of the JAX
+    package's that the port mends touches (ROADMAP section C; here sample
+    C's template C87, whose read 2 the JAX overlap clip cuts from read 1's
+    whole length though read 1's semialigned clip left 35 bases aligned,
+    and unknown's u8, whose proper flag the port works out again after the
+    gapped polish moved an end): there the port's records hold to the clip
+    reference and JAX's do not, and the Stats count the port's proper
+    pairs (`test_torch_defaults.assert_outputs_equal_but_mended`)."""
     jout, tout = ran("fastq_barcodes")
-    names = assert_outputs_equal(jout, tout)
+    touched = assert_outputs_equal_but_mended(jout, tout, pair_genome())
+    assert touched == {"C/sorted.bam": {"C87"}, "unknown/sorted.bam": {"u8"}}
+    names = output_files(tout)
     assert {"A/sorted.bam", "B/sorted.bam", "C/sorted.bam",
             "unknown/sorted.bam", "Stats/DemultiplexingStats.json"} \
         <= set(names)

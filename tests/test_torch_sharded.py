@@ -485,11 +485,12 @@ def test_devices_over_the_visible_cards_raise(wf_inputs, tmp_path):
 def test_single_device_paired_keeps_stale_clip_of_moved_disjoined_row():
     """ROADMAP §C4: a disjoined pair whose read 1 first lands on a repeat
     copy (with a device semialigned clip) is moved by the rescue next to
-    its mate; the single-device paired driver, JAX's and the port's alike,
-    then applies the pre-rescue device clip, which puts the read back at
-    the copy while the record keeps the rescued pair's flags.  The SPMD
-    drivers, JAX's and the port's alike, re-clip rescued rows at their new
-    placement."""
+    its mate.  The JAX single-device paired driver then applies the
+    pre-rescue device clip, which puts the read back at the copy while the
+    record keeps the rescued pair's flags: it keeps the stale clip.  The
+    port's single-device driver clips the rescued end where it landed (the
+    host pass), as the SPMD drivers, JAX's and the port's alike, re-clip
+    rescued rows at their new placement: all three agree."""
     from isaac_aligner_tpu.aligner import PairedAligner as JPaired
     from isaac_aligner_tpu_torch import dna, synthetic
 
@@ -526,10 +527,16 @@ def test_single_device_paired_keeps_stale_clip_of_moved_disjoined_row():
     rj8 = jmany.align_batch_arrays(*batches(JBatch))
     truth = int(sp.start1[row])
     assert bool(r8["rescued_1"][0]) and abs(int(r8["start_1"][0]) - truth) <= 1
-    assert int(r1["start_1"][0]) == int(rj["start_1"][0])
-    assert abs(int(r1["start_1"][0]) - truth) > 10_000
-    assert r1["cigar_1"][0] == rj["cigar_1"][0] == r8["cigar_1"][0]
-    assert r1["proper_pair"][0] and rj["proper_pair"][0]
+    # the JAX single-device driver keeps the stale clip of the copy
+    assert abs(int(rj["start_1"][0]) - truth) > 10_000
+    assert rj["proper_pair"][0]
+    # the port's single-device driver re-clips as the SPMD drivers do
+    assert one.reclipped == 1
+    for k in ("start_1", "start_2", "reverse_1", "edit_distance_1",
+              "proper_pair"):
+        assert int(r1[k][0]) == int(r8[k][0]) == int(rj8[k][0]), k
+    assert r1["cigar_1"][0] == r8["cigar_1"][0] == rj8["cigar_1"][0]
+    assert int(r1["start_1"][0]) != int(rj["start_1"][0])
     assert r1["start_2"][0] == r8["start_2"][0] == rj["start_2"][0]
     # the reference's SPMD driver places the row as the port's does
     assert bool(rj8["rescued_1"][0])
