@@ -89,8 +89,10 @@ their path against its plain torch version.  Phases, one line each:
  14. SPMD library: 32,768 of phase 5's reads and 32,768 of phase 7's pairs
      through ShardedAligner and ShardedPairedAligner over meshes of cuda:0
      entries, (data 1, shard 2), (2, 2) and (1, 2) genome-sharded, every
-     result field equal to Aligner / PairedAligner on the card; prints a
-     batch's wall and dispatch ms, sharded and single; banded_sw checked
+     result field equal to Aligner / PairedAligner on the card (their
+     batches replayed as CUDA graphs); prints a batch's wall and dispatch
+     ms, sharded and single, and one paired dispatch's kernels and CUDA
+     launch calls, eager against replayed; banded_sw checked
      and timed at the sharded runs' mean pairs per launch; then
      mark_duplicates_collective over four cuda:0 entries on phase 7's
      524,288 records equals mark_duplicates_batch with no overflow;
@@ -132,7 +134,10 @@ It imports only torch, numpy and the port, and fails if any `jax*` or
 `isaac_aligner_tpu` module was loaded by the end.
 
 Every main path's run (and phase 4's) counts both kernels' launches and
-fails unless sw_walk launched as often as banded_sw.  Then one JSON line
+fails unless sw_walk launched as often as banded_sw.  After each phase a
+line counts the batches' device programs of this process by their path
+(`graphs.ProgramGraphs`): graph_replays, graph_captures and
+eager_dispatches.  Then one JSON line
 of kernel results (launches: the workflows' runs of phases 5, 7, 10, 11,
 12, 13, 16, 17 and 18, phase 14's sharded runs and phase 15's two
 processes), the card line, and the last line {"ok": true, "device":
@@ -163,7 +168,7 @@ import numpy as np
 if __name__ != "__mp_main__":
     import torch
 
-    from isaac_aligner_tpu_torch import synthetic
+    from isaac_aligner_tpu_torch import graphs, synthetic
     from isaac_aligner_tpu_torch.align import gapped, pairs, quality
     from isaac_aligner_tpu_torch.align.pipeline import (AlignConfig,
                                                         default_seed_offsets,
@@ -362,6 +367,57 @@ def walk_bound(rows: np.ndarray, l: int) -> float:
               + int((2 * l + m_bases[gapped_rows]).sum())
               + 2 * 8 * sw.WALK_QUALS)
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+#: every batch's device program in this process, by the path it took
+#: through graphs.ProgramGraphs.run (count_graph_paths)
+GRAPH_PATHS = {"graph_replays": 0, "graph_captures": 0,
+               "eager_dispatches": 0}
+
+
+def count_graph_paths() -> None:
+    """Add each dispatch's path (replayed as a CUDA graph, captured, or
+    eager) to GRAPH_PATHS, whatever driver made it."""
+    orig = graphs.ProgramGraphs.run
+
+    def run(self, key, program, inputs, device, planes, tally):
+        before = {k: getattr(tally, k) for k in GRAPH_PATHS}
+        out = orig(self, key, program, inputs, device, planes, tally)
+        for k in GRAPH_PATHS:
+            GRAPH_PATHS[k] += getattr(tally, k) - before[k]
+        return out
+    graphs.ProgramGraphs.run = run
+
+
+def dispatch_launches(al, inputs) -> str:
+    """The CUDA runtime's launch calls and the device's kernels of one
+    `_dispatch` of `al` in the profiler: eager (the aligner's graphs
+    dropped, so the batch is a key's first sight) against replayed (the
+    key captured by the dispatch after it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one() -> str:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            al._dispatch(*inputs)
+            torch.cuda.synchronize()
+        calls: dict = {}
+        kernels = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kernels += not e.name.startswith(("Memcpy", "Memset"))
+            elif e.name.startswith("cu") and ("Launch" in e.name
+                                              or "Memcpy" in e.name):
+                calls[e.name] = calls.get(e.name, 0) + 1
+        return (f"{kernels} kernels, runtime calls "
+                + ", ".join(f"{k} {v}" for k, v in sorted(calls.items())))
+
+    al.graphs.clear()
+    eager = one()
+    al._dispatch(*inputs)
+    torch.cuda.synchronize()
+    return f"eager: {eager}; replayed: {one()}"
 
 
 def reset_launches() -> None:
@@ -1453,8 +1509,11 @@ def spmd_diff(want: dict, got: dict) -> list:
 def timed_batch(al, inputs) -> tuple[dict, float, float]:
     """(align_batch_arrays result, its wall ms, the dispatch's ms between
     CUDA events: the device program with the host's enqueue gaps) of one
-    batch, after a warm-up call."""
-    al.align_batch_arrays(*inputs)
+    batch, after two warm-up calls: the single-device drivers run the
+    batch's first sight eagerly and capture it on the second, so the timed
+    dispatch and batch are replays of its CUDA graph."""
+    for _ in range(2):
+        al.align_batch_arrays(*inputs)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1502,10 +1561,14 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
         if paired:
             single.tls = tls
         want, wall1, disp1 = timed_batch(single, inputs)
-        single.release_device()
         what = "paired" if paired else "single-end"
         rows.append(f"{what} single device: batch {wall1:.1f} ms, dispatch "
                     f"{disp1:.1f} ms")
+        if paired:
+            print(f"[14/18] one paired dispatch of {SPMD_READS} pairs, "
+                  f"{dispatch_launches(single, inputs)} [{card}]",
+                  flush=True)
+        single.release_device()
         for data, shard, gs in SPMD_MESHES:
             mesh = Mesh([[cuda0] * shard for _ in range(data)])
             cls = ShardedPairedAligner if paired else ShardedAligner
@@ -1533,8 +1596,9 @@ def phase_spmd(args, genome, index, sim, sp, tls, card: str,
     torch.cuda.empty_cache()
     print(f"[14/18] SPMD library, {SPMD_READS} reads and {SPMD_READS} pairs "
           f"over meshes of cuda:0 entries (a batch through "
-          f"align_batch_arrays, wall, after a warm-up; the dispatch between "
-          f"CUDA events): {'; '.join(rows)}; banded_sw"
+          f"align_batch_arrays, wall, after two warm-ups; the dispatch "
+          f"between CUDA events, a CUDA graph's replay on the single "
+          f"device): {'; '.join(rows)}; banded_sw"
           f" and sw_walk launches {launches} "
           f"({pairs_sw} pairs) [{card}]", flush=True)
     if launches <= 0:
@@ -2012,9 +2076,15 @@ def main() -> None:
     walk = phase_walk(np.random.default_rng(args.seed + 2), dev)
     # (phase, seconds from the start to its end)
     ends = [("1-3", time.perf_counter() - t_start)]
+    count_graph_paths()
+    paths = dict(GRAPH_PATHS)
 
     def done(phase: str) -> None:
         ends.append((phase, time.perf_counter() - t_start))
+        print(f"[{phase}/18] device programs in this process: "
+              + ", ".join(f"{k} {GRAPH_PATHS[k] - paths[k]}"
+                          for k in GRAPH_PATHS), flush=True)
+        paths.update(GRAPH_PATHS)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         genome, index, batch0, al, timing = phase_slice(args, dev, card,

@@ -13,8 +13,10 @@ stages run as eager torch ops on the aligner's device:
 Every shape stays fixed as in JAX (capacity-bounded hits, candidates and
 scoring queue), so no stage syncs with the host: `jnp.nonzero(size=...)`
 becomes a cumsum + scatter compaction, `.at[].set(mode="drop")` a write to
-a scratch row, and every gather index is clamped in range.  uint32 words
-ride in int64 carriers so shifts are logical.
+a scratch row, and every gather index is clamped in range.  No constant is
+copied from the host per batch either (`device_ints`, `torch.full`), so a
+batch's whole program can be captured as one CUDA graph (`graphs.py`).
+uint32 words ride in int64 carriers so shifts are logical.
 
 The paired path (`align/pairs.py`) scores each end with `score_end`: the
 same stages up to the ungapped scorer, without the single-end pick.
@@ -26,6 +28,7 @@ The result packing for the TPU link (`compact_cand_result`,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -342,6 +345,16 @@ def index_arrays_from_numpy(d: dict, device) -> IndexArrays:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def device_ints(values: tuple[int, ...], dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """A constant integer vector on `device`, copied there once per values
+    and device and kept: the device program reads it without a copy from
+    the host (which may wait for the device's queue, and which a CUDA
+    graph cannot capture), and a captured graph may keep its address."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def pack_reads(bases: torch.Tensor) -> torch.Tensor:
     """Pack [B, L] read codes into [B, ceil(L/16)] big-endian uint32 words
     (int64 carriers; N and tail padding pack as 0)."""
@@ -522,10 +535,8 @@ def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
     q_hi, q_lo = q_words[0], q_words[-1]
     q_mids = tuple(q_words[1:-1])
     seed_has_n = torch.stack(nmask, dim=1)
-    qoff_arr = torch.tensor([s[1] for s in seed_list], dtype=torch.int32,
-                            device=dev)
-    orient_arr = torch.tensor([s[0] for s in seed_list], dtype=torch.int32,
-                              device=dev)
+    qoff_arr = device_ints(tuple(s[1] for s in seed_list), torch.int32, dev)
+    orient_arr = device_ints(tuple(s[0] for s in seed_list), torch.int32, dev)
 
     if cfg.bucket_log2 is not None:
         # the count only needs resolving up to "more than repeat_threshold"
@@ -591,8 +602,8 @@ def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
         t_idx = torch.arange(w_ext + 1, dtype=torch.int64, device=dev)
         words = gp[torch.clamp(word0[..., None] + t_idx, 0, gp.shape[0] - 1)]
         g_ext = _funnel(words, ((ext_pos & 15) << 1)[..., None])  # [B,S,R,We]
-        xor = (g_ext ^ q_ext[:, :, None, :]) & torch.tensor(
-            word_mask, dtype=torch.int64, device=dev)
+        xor = (g_ext ^ q_ext[:, :, None, :]) & device_ints(
+            tuple(word_mask), torch.int64, dev)
         valid = valid & (xor == 0).all(dim=-1)
         if cfg.genome_has_n:
             gn = arrays.genome_nbits
@@ -600,8 +611,8 @@ def find_seed_hits(arrays: IndexArrays, cfg: AlignConfig, bases: torch.Tensor):
             nt = torch.arange(nw, dtype=torch.int64, device=dev)
             nwords = gn[torch.clamp(nword0[..., None] + nt, 0, gn.shape[0] - 1)]
             n_al = _funnel(nwords, (ext_pos & 31)[..., None])
-            n_hit = ((n_al & torch.tensor(nbit_mask, dtype=torch.int64,
-                                          device=dev)) != 0).any(dim=-1)
+            n_hit = ((n_al & device_ints(tuple(nbit_mask), torch.int64,
+                                         dev)) != 0).any(dim=-1)
             valid = valid & ~n_hit
 
     diag = {"seed_match_counts": count, "seed_too_many": too_many}
@@ -873,7 +884,8 @@ def finalize_single_end(arrays: IndexArrays, cfg: AlignConfig, bases, quals,
     # best candidate: lowest mismatch count, then highest log-prob
     # (TemplateBuilder::getBestFragment); argmin takes the first index on
     # ties, as jnp.argmin does (identical repeat copies score bit-equal)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=bases.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32,
+                     device=bases.device)
     order_key = torch.where(cand_valid,
                             mismatches.to(torch.float32) * 1e6 - log_prob, inf)
     if cfg.scatter_repeats:

@@ -93,7 +93,7 @@ def mapping_quality_f64(best_log_prob, others_prob_sum, rog_correction):
 def scaled_masses(lp, valid, best_lp):
     """(total_scaled, p_best_scaled, m_safe): probability masses scaled
     by exp(-m), m = per-row max of the valid log probs (last axis)."""
-    neg_inf = torch.tensor(-float("inf"), dtype=lp.dtype, device=lp.device)
+    neg_inf = torch.full((), -float("inf"), dtype=lp.dtype, device=lp.device)
     m = torch.where(valid, lp, neg_inf).amax(dim=-1)
     finite_m = torch.isfinite(m)
     m_safe = torch.where(finite_m, m, torch.zeros_like(m))
@@ -107,7 +107,8 @@ def scaled_masses(lp, valid, best_lp):
 def rog_scaled(log_rog: float, m_safe):
     """The rest-of-genome prior on the exp(-m) scale, exponent clipped to
     the f32-representable band."""
-    log_rog_f32 = torch.tensor(log_rog, dtype=torch.float32, device=m_safe.device)
+    log_rog_f32 = torch.full((), log_rog, dtype=torch.float32,
+                             device=m_safe.device)
     return torch.exp(torch.clamp(log_rog_f32 - m_safe, -87.0, 88.0))
 
 

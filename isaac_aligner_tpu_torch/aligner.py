@@ -10,6 +10,12 @@ shadow and disjoined rescue on the device), masked tail, contig-end clip,
 gapped polish (banded SW on the device, once per end), long-indel polish,
 semialigned clip, (pairs: overlapping-end clip).
 
+On a card, a batch's device program (everything `_dispatch` enqueues after
+the host's adapter mask) is captured as a CUDA graph at its key's second
+sight and replayed after that (`graphs.ProgramGraphs`); the counters
+`graph_replays`, `graph_captures` and `eager_dispatches` say which path
+each batch took.
+
 Batches run in order.  The JAX driver's single-buffer result packing, its
 fetch worker threads and its fixed-capacity rescue calls existed for the
 TPU link's per-fetch latency and static shapes, and are left behind.
@@ -40,6 +46,8 @@ from .align.pipeline import (AlignConfig, IndexArrays, align_batch,
                              genome_has_n_for, mask_tail_device, prepare_index,
                              score_end)
 from .device import require_device
+from .graphs import ProgramGraphs
+from .graphs import upload as _upload
 from .index.build import SeedIndex
 from .io import sam
 from .io.fastq import ReadBatch
@@ -73,10 +81,6 @@ def _pad_to_seed(bases: np.ndarray, quals: np.ndarray, seed_len: int):
     pb[:, :l] = bases
     pq[:, :l] = quals
     return pb, pq
-
-
-def _upload(x: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
 def _fetch(out: dict, device) -> dict[str, np.ndarray]:
@@ -159,6 +163,13 @@ class Aligner:
     overlap_clipped: int = 0
     indel_moved: int = 0
     indel_repaired: int = 0
+    # how each batch's device program ran (graphs.ProgramGraphs): replayed
+    # as a CUDA graph, captured, or enqueued op by op
+    graph_replays: int = 0
+    graph_captures: int = 0
+    eager_dispatches: int = 0
+    graphs: ProgramGraphs = dataclasses.field(default_factory=ProgramGraphs,
+                                              repr=False, compare=False)
 
     def ensure_uploaded(self) -> None:
         """Upload the index planes to the device if they are not there;
@@ -172,8 +183,10 @@ class Aligner:
                     torch.cuda.synchronize(self.device)
 
     def release_device(self) -> None:
-        """Drop the device planes and return their memory to the card, so
-        that the next contig group's upload can take it."""
+        """Drop the device planes, and the graphs that read them, and
+        return their memory to the card, so that the next contig group's
+        upload can take it."""
+        self.graphs.clear()
         self.arrays = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -203,7 +216,8 @@ class Aligner:
         return al
 
     def _dispatch(self, batch: ReadBatch):
-        """Adapter-mask on host, enqueue the device pipeline."""
+        """Adapter-mask on host, enqueue the device pipeline (replayed as a
+        CUDA graph where it can be: `graphs.ProgramGraphs`)."""
         with tracing.collect(self.timings), tracing.span("dispatch"):
             bases = batch.bases.copy()
             quals = batch.quals.copy()
@@ -213,12 +227,21 @@ class Aligner:
             # the device gets the original bases and re-applies the adapter
             # mask from the counts; the masked host copies feed the polish
             ob, oq = _pad_to_seed(batch.bases, batch.quals, self.cfg.seed_len)
-
-            tail = _upload(trims.astype(np.int32), self.device)
-            mb, mq = mask_tail_device(_upload(ob, self.device),
-                                      _upload(oq, self.device), tail)
-            out = align_batch(self.arrays, mb, mq, self.cfg, tail)
+            out = self.graphs.run(self.cfg, self._program(),
+                                  (ob, oq, trims.astype(np.int32)),
+                                  self.device, self.arrays, self)
             return out, bases, quals, trims, batch
+
+    def _program(self):
+        """The batch's device program on its device inputs (original
+        bases, qualities and adapter counts): everything `_dispatch`
+        enqueues after the host's adapter mask."""
+        arrays, cfg = self.arrays, self.cfg
+
+        def program(ob, oq, tail):
+            mb, mq = mask_tail_device(ob, oq, tail)
+            return align_batch(arrays, mb, mq, cfg, tail)
+        return program
 
     def _finish(self, pending) -> dict[str, np.ndarray]:
         """Fetch device results (one .cpu() per field), run host polish."""
@@ -390,6 +413,12 @@ class PairedAligner:
     overlap_clipped: int = 0
     indel_moved: int = 0
     indel_repaired: int = 0
+    # how each batch's device program ran, as Aligner's
+    graph_replays: int = 0
+    graph_captures: int = 0
+    eager_dispatches: int = 0
+    graphs: ProgramGraphs = dataclasses.field(default_factory=ProgramGraphs,
+                                              repr=False, compare=False)
 
     ensure_uploaded = Aligner.ensure_uploaded
     release_device = Aligner.release_device
@@ -455,9 +484,10 @@ class PairedAligner:
 
     def _dispatch(self, b1: ReadBatch, b2: ReadBatch):
         """Adapter-mask both ends on the host, enqueue the device pipeline
-        (quality trim and semialigned clip run on the device)."""
+        (quality trim and semialigned clip run on the device; replayed as
+        a CUDA graph where it can be: `graphs.ProgramGraphs`)."""
         with tracing.collect(self.timings), tracing.span("dispatch"):
-            masked, orig, trims = [], [], []
+            masked, inputs, trims = [], [], []
             for b in (b1, b2):
                 bases = b.bases.copy()
                 quals = b.quals.copy()
@@ -466,18 +496,30 @@ class PairedAligner:
                 bases, quals = _pad_to_seed(bases, quals, self.cfg.seed_len)
                 masked.append(ReadBatch(b.names, bases, quals, b.lengths))
                 ob, oq = _pad_to_seed(b.bases, b.quals, self.cfg.seed_len)
-                tail = _upload(t.astype(np.int32), self.device)
-                orig.append((*mask_tail_device(_upload(ob, self.device),
-                                               _upload(oq, self.device),
-                                               tail), tail))
+                inputs += [ob, oq, t.astype(np.int32)]
                 trims.append(t)
             # the device gets the original bases and re-applies the adapter
             # mask from the counts; the masked host copies feed polish +
             # rescue
-            (mb1, mq1, tm1), (mb2, mq2, tm2) = orig
-            out = align_paired_batch(self.arrays, mb1, mq1, mb2, mq2,
-                                     self.cfg, self._batch_tls(b1), tm1, tm2)
+            tls = self._batch_tls(b1)
+            out = self.graphs.run((self.cfg, tls), self._program(tls),
+                                  tuple(inputs), self.device, self.arrays,
+                                  self)
             return out, masked[0], masked[1], trims, (b1, b2)
+
+    def _program(self, tls: TlsStatic):
+        """The batch's device program on its six device inputs (each end's
+        original bases, qualities and adapter counts) under the TLS model
+        `tls`: everything `_dispatch` enqueues after the host's adapter
+        mask."""
+        arrays, cfg = self.arrays, self.cfg
+
+        def program(ob1, oq1, tail1, ob2, oq2, tail2):
+            mb1, mq1 = mask_tail_device(ob1, oq1, tail1)
+            mb2, mq2 = mask_tail_device(ob2, oq2, tail2)
+            return align_paired_batch(arrays, mb1, mq1, mb2, mq2, cfg, tls,
+                                      tail1, tail2)
+        return program
 
     def _finish(self, pending) -> dict[str, np.ndarray]:
         """Fetch device results (one .cpu() per field), run the host

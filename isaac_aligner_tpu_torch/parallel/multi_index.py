@@ -42,6 +42,7 @@ import numpy as np
 
 from ..align import quality
 from ..aligner import Aligner, PairedAligner
+from ..graphs import GraphPool, check_replay_order
 from ..index.build import SeedIndex
 from ..io import sam
 from ..io.fastq import ReadBatch
@@ -115,6 +116,17 @@ def _group_major_many(aligners, batches, run_one, record, merge):
         yield b, merge(b, [g[i] for g in per_group])
 
 
+def _share_pool(aligners: list) -> list:
+    """One CUDA graph memory pool for every group's device programs: the
+    groups capture and replay in group order (`_dispatch_all` and the
+    group-major loop), so one program's transient memory serves them all
+    (`graphs.py`)."""
+    pool = GraphPool()
+    for a in aligners:
+        a.graphs.pool = pool
+    return aligners
+
+
 def _merged_finder_stats(aligners, anomalous) -> dict:
     merged: dict = {}
     for a in aligners:
@@ -185,6 +197,11 @@ class _GroupsMixin:
     overlap_clipped = property(lambda self: self._summed("overlap_clipped"))
     indel_moved = property(lambda self: self._summed("indel_moved"))
     indel_repaired = property(lambda self: self._summed("indel_repaired"))
+    # how the groups' device programs ran (graphs.ProgramGraphs)
+    graph_replays = property(lambda self: self._summed("graph_replays"))
+    graph_captures = property(lambda self: self._summed("graph_captures"))
+    eager_dispatches = property(
+        lambda self: self._summed("eager_dispatches"))
 
 
 @dataclasses.dataclass
@@ -205,9 +222,9 @@ class MultiIndexAligner(_GroupsMixin):
                group_major: bool = False, **opts) -> "MultiIndexAligner":
         _check_disjoint(indexes)
         return MultiIndexAligner(
-            [Aligner.create(ix, read_len=read_len,
-                            defer_upload=group_major, **opts)
-             for ix in indexes], group_major=group_major)
+            _share_pool([Aligner.create(ix, read_len=read_len,
+                                        defer_upload=group_major, **opts)
+                         for ix in indexes]), group_major=group_major)
 
     @property
     def finder_stats(self):
@@ -222,10 +239,15 @@ class MultiIndexAligner(_GroupsMixin):
         return self._summed("sw_accepted")
 
     def _dispatch_all(self, batch: ReadBatch) -> list:
-        """Launch every group's device program before fetching any."""
+        """Launch every group's device program, in group order, before
+        fetching any (a group's replayed outputs stay valid until its next
+        dispatch, which comes after `_finish_all`; the groups' graphs must
+        replay in their capture order, `graphs.check_replay_order`)."""
         for a in self.aligners:
             a.ensure_uploaded()
-        return [a._dispatch(batch) for a in self.aligners]
+        pending = [a._dispatch(batch) for a in self.aligners]
+        check_replay_order([a.graphs for a in self.aligners])
+        return pending
 
     def _finish_all(self, batch: ReadBatch, pendings: list) -> list[dict]:
         out = []
@@ -335,9 +357,10 @@ class MultiIndexPairedAligner(_GroupsMixin):
                ) -> "MultiIndexPairedAligner":
         _check_disjoint(indexes)
         return MultiIndexPairedAligner(
-            [PairedAligner.create(ix, read_len=read_len,
-                                  defer_upload=group_major, **opts)
-             for ix in indexes], group_major=group_major)
+            _share_pool([PairedAligner.create(ix, read_len=read_len,
+                                              defer_upload=group_major,
+                                              **opts)
+                         for ix in indexes]), group_major=group_major)
 
     @property
     def finder_stats(self):
@@ -382,10 +405,13 @@ class MultiIndexPairedAligner(_GroupsMixin):
         return stats
 
     def _dispatch_all(self, b1: ReadBatch, b2: ReadBatch) -> list:
-        """Launch every group's paired device program before fetching any."""
+        """Launch every group's paired device program, in group order,
+        before fetching any (see MultiIndexAligner._dispatch_all)."""
         for a in self.aligners:
             a.ensure_uploaded()
-        return [a._dispatch(b1, b2) for a in self.aligners]
+        pending = [a._dispatch(b1, b2) for a in self.aligners]
+        check_replay_order([a.graphs for a in self.aligners])
+        return pending
 
     def _finish_all(self, b1: ReadBatch, b2: ReadBatch,
                     pendings: list) -> list[dict]:

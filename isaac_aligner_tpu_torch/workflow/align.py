@@ -94,20 +94,24 @@ STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
 #: records a seed and widens each seed's hit list from `max_hits_per_seed`
 #: slots to that plus `neighbor_scan_cap`, through the sort-dedup; WS_FIXED
 #: holds what does not grow with the batch, such as the rescue's capped
-#: chunks).  Fitted by `scripts/torch_working_set.py` as an upper envelope
-#: of torch.cuda.max_memory_allocated less the planes, single-end and
+#: chunks).  The batch's device program replays as a CUDA graph
+#: (`graphs.py`), whose memory pool holds its temporaries for good, so the
+#: polish and the rescue allocate beside them, not in their place.  Fitted
+#: by `scripts/torch_working_set.py` as an upper envelope, single-end and
 #: paired, at 100, 150 and 251 bp, 4,096 to 65,536 templates, one index,
 #: two groups and one index with the neighbor pass, on an H100 80GB HBM3 at
-#: 700 W (each constant rounded up).  A template takes about as much as a
-#: pair's two ends (16.5 kB a 100 bp read, 17.6 kB a 100 bp pair; 42.1 and
-#: 43.3 kB with the neighbor pass).
-WS_FIXED = 262_655_126
-WS_TEMPLATE = 7_115
-WS_TEMPLATE_PER_BASE = 117
-WS_GROUP = 640
-WS_GROUP_PER_BASE = 0
-WS_NEIGHBOR = 7_501
-WS_NEIGHBOR_PER_BASE = 171
+#: 700 W (each constant rounded up), of the lesser of two bounds of the
+#: need beside the planes: torch.cuda.max_memory_allocated plus the bytes
+#: the graph pool holds free, and torch.cuda.max_memory_reserved.  A read
+#: takes about as much as a pair's two ends: the model gives a 100 bp
+#: template 46.1 kB, 78.1 kB with the neighbor pass.
+WS_FIXED = 300_389_880
+WS_TEMPLATE = 23_454
+WS_TEMPLATE_PER_BASE = 226
+WS_GROUP = 0
+WS_GROUP_PER_BASE = 123
+WS_NEIGHBOR = 12_821
+WS_NEIGHBOR_PER_BASE = 192
 
 
 def batch_working_set(templates: int, read_len: int, groups: int,
@@ -903,13 +907,15 @@ class AlignWorkflow:
         # device work of the host-driven passes: pairs sent to the banded
         # SW kernel and those whose gapped result was taken, (pairs)
         # orphan rows scanned by the rescue, and the ends and pairs the
-        # trim, clip and simple-indel passes changed
+        # trim, clip and simple-indel passes changed, and the batches'
+        # device programs replayed as CUDA graphs, captured or run eagerly
         stats["device_work"] = {k: getattr(aligner, k) for k in
                                 ("sw_pairs", "sw_accepted", "rescue_rows",
                                  "rescue_calls", "trimmed_ends",
                                  "semialigned_clipped", "reclipped",
                                  "overlap_clipped", "indel_moved",
-                                 "indel_repaired")
+                                 "indel_repaired", "graph_replays",
+                                 "graph_captures", "eager_dispatches")
                                 if hasattr(aligner, k)}
         if groups is not None:
             # per contig group: its records, the device bytes of its planes

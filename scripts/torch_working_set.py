@@ -9,11 +9,23 @@ with the seed stage's neighbor pass on (--neighborhood-size-threshold
 pairs), runs --batches batches of
 simulated reads through the aligner that `AlignWorkflow` runs on the card
 (`Aligner` / `PairedAligner`, or `MultiIndexAligner` /
-`MultiIndexPairedAligner` over the groups) and records
-torch.cuda.max_memory_allocated less what was allocated before the first
-batch (the planes).  It also sums the bytes of one dispatch's outputs: what
-stays alive while a resident batch's other groups run.  Then it fits, per
-template (a read, or a pair: a batch's size),
+`MultiIndexPairedAligner` over the groups) and records the peak it needs
+beside the planes.  A first batch, dispatched to every group, is the
+shape's first sight (eager); the measured batches then capture the device
+program as a CUDA graph and replay it (`graphs.py`), as a job's do.  A
+replay's temporaries live in the graph's memory pool, which stays held
+while the polish and the rescue allocate beside it, and which
+torch.cuda.max_memory_allocated counts only at the capture.  So the need
+taken is the larger of the capturing batch's allocated peak and the
+replaying batches' allocated peak plus the bytes the pool holds free for
+the replays (`memory_snapshot`'s segments outside the default pool), each
+less what was allocated before (the planes).  Each run also gives those
+readings apart, the reserved peak (torch.cuda.max_memory_reserved less
+the planes' segments, the caching allocator's slack included), the
+model's `batch_working_set` and whether the need lies under it.  It also
+sums the bytes of one dispatch's outputs: what stays alive while a
+resident batch's other groups run.  Then it fits, per template (a read,
+or a pair: a batch's size),
 
     bytes = F + templates * (a + b * read_len
                              + (groups - 1) * (p + q * read_len)
@@ -36,6 +48,7 @@ Needs torch, numpy, nvcc and one GPU.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 from pathlib import Path
@@ -57,6 +70,8 @@ from isaac_aligner_tpu_torch.index.groups import (  # noqa: E402
 from isaac_aligner_tpu_torch.io.fastq import ReadBatch  # noqa: E402
 from isaac_aligner_tpu_torch.parallel.multi_index import (  # noqa: E402
     MultiIndexAligner, MultiIndexPairedAligner)
+from isaac_aligner_tpu_torch.workflow.align import (  # noqa: E402
+    batch_working_set)
 
 GROUP_LIMIT = 2_400_000     # the 4.6 Mbp genome as two groups of 4 contigs
 NB_THRESHOLD = 100          # --neighborhood-size-threshold of the neighbor runs
@@ -79,19 +94,31 @@ def make_aligner(indexes, paired: bool, read_len: int, neighbors: bool):
     return cls.create(indexes[0], read_len=read_len, cfg=cfg, device="cuda")
 
 
-def dispatch_bytes(al, inputs) -> int:
-    """Bytes of the device tensors one group's dispatch returns."""
-    one = al.aligners[0] if hasattr(al, "aligners") else al
-    out = one._dispatch(*inputs)[0]
+def first_sight(al, inputs) -> int:
+    """Dispatch a batch to every group, each group's first sight of its
+    shape (eager); the bytes of the device tensors one group's dispatch
+    returns."""
+    if hasattr(al, "aligners"):
+        out = al._dispatch_all(*inputs)[0][0]
+    else:
+        out = al._dispatch(*inputs)[0]
     torch.cuda.synchronize()
     return sum(v.numel() * v.element_size() for v in out.values()
                if isinstance(v, torch.Tensor))
 
 
+def graph_pool_free() -> int:
+    """Bytes that the CUDA graphs' private pools hold and no live tensor
+    takes: the space of their replays' temporaries."""
+    return sum(s["total_size"] - s["allocated_size"]
+               for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) != (0, 0))
+
+
 def measure(rng, genome, indexes, paired: bool, read_len: int, rows: int,
             n_batches: int, neighbors: bool) -> dict:
-    """The peak bytes allocated beyond the planes over `n_batches`
-    batches of `rows` read rows."""
+    """The peak bytes needed beyond the planes over `n_batches` batches
+    of `rows` read rows (module docstring)."""
     al = make_aligner(indexes, paired, read_len, neighbors)
     if paired:
         # inserts scale with the read: N(300, 50) in [150, 500] at 100 bp
@@ -109,21 +136,37 @@ def measure(rng, genome, indexes, paired: bool, read_len: int, rows: int,
                                    read_len=read_len)
         batches = [(batch(sim.bases[i:i + rows], "r"),)
                    for i in range(0, n_batches * rows, rows)]
-    pending = dispatch_bytes(al, batches[0])
-    torch.cuda.synchronize()
+    pending = first_sight(al, batches[0])
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    base_pool = graph_pool_free()
     torch.cuda.reset_peak_memory_stats()
     stream = batches if paired else [b[0] for b in batches]
-    for _ in al.align_results_many(stream):
+    results = al.align_results_many(stream)
+    next(results)                   # the second sight: captured
+    torch.cuda.synchronize()
+    capture = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved() - base_reserved
+    torch.cuda.reset_peak_memory_stats()
+    for _ in results:               # replays
         pass
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del al
+    allocated = torch.cuda.max_memory_allocated() - base
+    reserved = max(reserved,
+                   torch.cuda.max_memory_reserved() - base_reserved)
+    pool = graph_pool_free() - base_pool
+    del al, results
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"paired": paired, "read_len": read_len, "rows": rows,
-            "groups": len(indexes), "neighbors": neighbors, "bytes": peak,
-            "dispatch_bytes": pending}
+    r = {"paired": paired, "read_len": read_len, "rows": rows,
+         "groups": len(indexes), "neighbors": neighbors,
+         "bytes": max(capture, allocated + pool), "capture": capture,
+         "allocated": allocated, "graph_pool_free": pool,
+         "reserved": reserved, "dispatch_bytes": pending}
+    r["model"] = batch_working_set(templates(r), read_len, len(indexes),
+                                   neighbors)
+    return r
 
 
 def templates(r: dict) -> int:
@@ -166,7 +209,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lengths", default="100,150,251")
     ap.add_argument("--rows", default="8192,65536")
-    ap.add_argument("--batches", type=int, default=2)
+    ap.add_argument("--batches", type=int, default=2,
+                    help="at least 2: a capture, then replays")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -190,9 +234,14 @@ def main() -> None:
                     print(f"{'paired' if paired else 'single'} L={read_len} "
                           f"groups={len(indexes)} neighbors={neighbors} "
                           f"rows={rows}: {r['bytes']} B "
-                          f"({r['bytes'] / rows:.1f} B a row), one dispatch's "
-                          f"outputs {r['dispatch_bytes']} B "
-                          f"({r['dispatch_bytes'] / rows:.1f} B a row) "
+                          f"({r['bytes'] / rows:.1f} B a row; capture "
+                          f"{r['capture']}, replays' allocated "
+                          f"{r['allocated']} + graph pool free "
+                          f"{r['graph_pool_free']}; reserved "
+                          f"{r['reserved']}), model {r['model']} B "
+                          f"({'under' if r['bytes'] <= r['model'] else 'OVER'}"
+                          f"), one dispatch's outputs {r['dispatch_bytes']} "
+                          f"B ({r['dispatch_bytes'] / rows:.1f} B a row) "
                           f"[{card}]", flush=True)
     model = fit(runs)
     print(f"fit: F {model['F']:.0f} B; a template a {model['a']:.1f} + b "

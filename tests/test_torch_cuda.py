@@ -318,10 +318,18 @@ def test_paired_aligner_card_equals_cpu(cuda_device):
     for dev in (cuda_device, "cpu"):
         al = PairedAligner.create(index, read_len=100, device=dev)
         tls = al.learn_tls([batches()])
+        if al.device.type == "cuda":
+            # the batch's first sight runs eagerly and its second captures
+            # it: the compared batch is a replay of its CUDA graph
+            for _ in range(2):
+                al.align_to_sam(*batches())
         before = sw.banded_sw.launches, sw.sw_walk.launches
         recs = al.align_to_sam(*batches())
         out.append((tls, recs, sw.banded_sw.launches - before[0],
                     sw.sw_walk.launches - before[1]))
+        if al.device.type == "cuda":
+            assert (al.eager_dispatches, al.graph_captures,
+                    al.graph_replays) == (1, 1, 1)
     (tls_g, gpu, n_g, w_g), (tls_c, cpu, n_c, w_c) = out
     assert tls_g == tls_c and {tls_g.best0, tls_g.best1} == {1, 6}
     assert n_g > 0 and n_c == 0
@@ -409,6 +417,89 @@ def test_grouped_aligner_card_equals_cpu(cuda_device):
         d = np.abs(g[k].astype(np.int64) - c[k].astype(np.int64))
         assert d.max() <= 1 and (d > 0).sum() <= 0.005 * d.size, k
     assert g["proper_pair"].mean() > 0.9
+
+
+#: two TLS models of the graph tests' pairs (TlsStatic fields; a
+#: per-tile hint stands for the second)
+_TLS_A = dict(min=150, max=500, mate_min=150, mate_max=500, best0=1,
+              best1=6, median=300)
+GRAPH_TLS = (_TLS_A, dict(_TLS_A, min=180, max=450, mate_min=180,
+                          mate_max=450, median=310))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver", ["single", "paired", "grouped"])
+def test_graph_replay_bit_equal_to_eager(cuda_device, driver):
+    """Nine batches of other reads each through a driver whose device
+    programs are captured and replayed as CUDA graphs, against the same
+    driver's eager program (its graphs dropped before every batch, so each
+    is a first sight): every key of every output dict bit-equal, over a
+    change of shape and, paired, a change of TLS.  Per group and key the
+    first sight is eager, the second a capture and the rest replays; the
+    two groups of the multi-index driver share one pool."""
+    from isaac_aligner_tpu_torch.aligner import Aligner, PairedAligner
+    from isaac_aligner_tpu_torch.align.pairs import TlsStatic
+    from isaac_aligner_tpu_torch.index.build import build_index
+    from isaac_aligner_tpu_torch.io.fastq import ReadBatch
+    from isaac_aligner_tpu_torch.parallel.multi_index import \
+        MultiIndexPairedAligner
+
+    genome, indexes, sp = _grouped_fixture()
+    n = sp.bases1.shape[0]
+    quals = np.random.default_rng(11).integers(
+        2, 41, (2,) + sp.bases1.shape).astype(np.uint8)
+    whole = build_index(genome, seed_len=32) if driver != "grouped" else None
+    tls = [TlsStatic(**t) for t in GRAPH_TLS]
+
+    def make():
+        if driver == "grouped":
+            return MultiIndexPairedAligner.create(indexes, read_len=100,
+                                                  device=cuda_device)
+        cls = Aligner if driver == "single" else PairedAligner
+        return cls.create(whole, read_len=100, device=cuda_device)
+
+    def batch(k, rows):
+        idx = (np.arange(rows) + 97 * k) % n
+        ends = tuple(ReadBatch(names=[f"t{i}" for i in idx],
+                               bases=b[idx].copy(), quals=q[idx].copy(),
+                               lengths=np.full(rows, 100, np.int32))
+                     for b, q in ((sp.bases1, quals[0]),
+                                  (sp.bases2, quals[1])))
+        return ends[:1] if driver == "single" else ends
+
+    def dispatch(al, inputs) -> list[dict]:
+        if driver == "grouped":
+            return [p[0] for p in al._dispatch_all(*inputs)]
+        return [al._dispatch(*inputs)[0]]
+
+    al, ref = make(), make()
+    groups = getattr(al, "aligners", [al])
+    if driver == "grouped":
+        assert groups[0].graphs.pool is groups[1].graphs.pool
+    # (rows, TLS model) of each batch: one key's four sights, a change of
+    # shape, the key again, a change of TLS (a new key when paired)
+    plan = [(n, 0)] * 4 + [(n - 256, 0), (n, 0)] + [(n, 1)] * 3
+    for k, (rows, t) in enumerate(plan):
+        inputs = batch(k, rows)
+        if driver != "single":
+            al.tls = ref.tls = tls[t]
+        got = dispatch(al, inputs)
+        for a in getattr(ref, "aligners", [ref]):
+            a.graphs.clear()
+        want = dispatch(ref, inputs)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for key in w:
+                assert torch.equal(g[key], w[key]), (k, key)
+    # single-end: the first key's 8 sights and the other shape's one;
+    # paired: the first key's 5, the other shape's 1, the other TLS's 3
+    expect = (2, 1, 6) if driver == "single" else (3, 2, 4)
+    for a in groups:
+        assert (a.eager_dispatches, a.graph_captures, a.graph_replays) \
+            == expect
+    assert (al.eager_dispatches, al.graph_captures, al.graph_replays) == \
+        tuple(len(groups) * e for e in expect)
+    assert ref.graph_replays == ref.graph_captures == 0
 
 
 @pytest.mark.cuda

@@ -372,6 +372,16 @@ MEASURED_WORKING_SETS = [
     (65_536, 251, 1, True, 5_530_464_256),
     (8_192, 100, 1, True, 359_502_848),
     (32_768, 100, 1, True, 1_419_504_612),
+    # with the batch's device program replayed as a CUDA graph: the lesser
+    # of the allocated peak plus the graph pool's free bytes and the
+    # reserved peak
+    (65_536, 251, 2, False, 6_429_731_328),
+    (8_192, 100, 1, False, 218_103_808),
+    (65_536, 251, 1, True, 8_111_783_936),
+    (32_768, 251, 2, False, 3_422_129_152),
+    (4_096, 100, 2, False, 197_595_648),
+    (32_768, 251, 1, True, 4_517_265_408),
+    (4_096, 251, 1, True, 877_784_064),
 ]
 
 
